@@ -1,13 +1,19 @@
-"""Drive the PyTorch port on one NVIDIA GPU: build its kernel, check it, run it.
+"""Drive the PyTorch port on one NVIDIA GPU: build its kernels, check them,
+run inference and training through them.
 
     python3 chip_smoke.py              # one card
 
 Phases, in order (each raises on failure; nothing is caught):
   device  require CUDA, print the card's name and power limit;
-  build   build rmnet_tpu_torch/csrc/flash_read_fwd.cu with nvcc for sm_90a;
+  build   build rmnet_tpu_torch/csrc/flash_read_{fwd,bwd}.cu with nvcc for
+          sm_90a (one nvcc each, started together); registers, spills and
+          shared memory of each;
   kernel  hold the flash-read kernel against its plain PyTorch version at the
           main-path shapes (f32 at 2e-4; bf16 within 1e-2 of the plain
           output's largest magnitude; lse at 2e-4);
+  kernel_bwd  hold the backward kernel against its plain version on the same
+          cases plus the training read (dQ, dK, dV each within 1e-4 of the
+          plain gradient's largest magnitude in f32, 1e-2 in bf16);
   engine  480x854, 2 objects, memorize_every=5, T=48, bf16, flash read, auto
           capacity, random weights: labels, launch count (T-1), and one f32
           step through the kernel read against the dense read (the read's
@@ -16,7 +22,19 @@ Phases, in order (each raises on failure; nothing is caught):
           scaled_dot_product_attention over the dense bank, all on the
           inputs of the engine's last flash read; the kernel's bound;
   profile device time per frame by kernel kind (torch.profiler), the
-          device's busy share; the kernel table in build/chip_smoke/profile.txt.
+          device's busy share; the kernel table in build/chip_smoke/profile.txt;
+  train   the reference training shape at full width (B=4, T=3, 3 objects,
+          465x465, f32, flash read, frozen BN, Adam at lr 1e-5): the first
+          step's gradient through the flash read against the dense read
+          (per tensor within 1e-3), and the backward kernel against its
+          plain version on that step's reads; 1 warm-up and 5 timed steps,
+          finite losses, parameters that change, T-1 = 2 forward and 2
+          backward kernel launches per step; the gradient comparison again
+          after the steps, reported only, beside the flash step run twice;
+  train_times  ms per step, clips/s, peak memory; the backward kernel, its
+          plain version and the backward of scaled_dot_product_attention at
+          the step's last read; the backward's bound; one step profiled
+          (build/chip_smoke/profile_train.txt).
 
 Prints the card's name and power limit, the kernel table as one JSON line
 before the last, and as the last line {"ok": true, "device": {...}}. The
@@ -71,16 +89,25 @@ def phase_device() -> str:
     return smi
 
 
-def phase_build() -> float:
-    from rmnet_tpu_torch.ops.flash_attention import LIBRARY
+def phase_build() -> dict:
+    """Build both kernel libraries, one nvcc each, started together."""
+    from concurrent.futures import ThreadPoolExecutor
 
-    lib = LIBRARY.load(force_build=True)
-    log(f"build: {LIBRARY.path.name} in {LIBRARY.build_seconds:.2f} s, dynamic shared "
-        f"memory {lib.flash_read_fwd_smem_bytes()} bytes per block")
-    for line in LIBRARY.build_log.splitlines():
-        if any(w in line for w in ("registers", "spill", "smem", "error", "warning")):
-            log(f"  ptxas: {line.strip()}")
-    return LIBRARY.build_seconds
+    from rmnet_tpu_torch.ops.flash_attention import BWD_LIBRARY, LIBRARY
+
+    libs = (LIBRARY, BWD_LIBRARY)
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(libs)) as pool:
+        list(pool.map(lambda lib: lib.load(force_build=True), libs))
+    log(f"build: {len(libs)} libraries in {time.perf_counter() - t0:.2f} s")
+    for lib in libs:
+        log(f"build: {lib.path.name} in {lib.build_seconds:.2f} s, dynamic shared "
+            f"memory {lib.smem_bytes()} bytes per block (largest kernel)")
+        for line in lib.build_log.splitlines():
+            if any(w in line for w in ("Compiling entry", "registers", "spill", "smem",
+                                       "error", "warning")):
+                log(f"  ptxas: {line.strip()}")
+    return {lib.name: lib.build_seconds for lib in libs}
 
 
 # ----------------------------------------------------------------- kernel
@@ -187,6 +214,83 @@ def phase_kernel() -> None:
         compare_read(name, bank_case(*args))
 
 
+# ------------------------------------------------------------- kernel_bwd
+# Backward kernel against plain version, for each of dQ, dK, dV:
+# max|g - plain| <= tol * max|plain|. f32: 1e-4 (sums of up to Q*M products
+# taken in another order). bf16: both compute in f32 from the same bf16
+# inputs and the kernel rounds once, so at most half an ulp, max|plain|/256.
+BWD_F32_REL_TOL, BWD_BF16_REL_TOL = 1e-4, 1e-2
+
+# the forward's cases plus the training read: N = B*(K-1) = 12 rows, the
+# 465x465 crop padded to 480x480 (30x30), capacity 2 plus the ephemeral
+# slot, the slot being written this frame invalid
+BWD_CASES = {
+    **KERNEL_CASES,
+    "train_S3_f32": (12, 3, 30, 30, torch.float32, 8, (1,)),
+    "train_S3_bf16": (12, 3, 30, 30, torch.bfloat16, 9, (1,)),
+}
+
+
+def bwd_args(c, d_out, out=None, lse=None) -> tuple:
+    """The backward kernel's arguments for read inputs ``c`` and cotangent
+    ``d_out``, as FlashMemoryRead.backward makes them: the tile metadata,
+    the forward's lse (the plain forward's unless given) and D =
+    rowsum(dO * O)."""
+    from rmnet_tpu_torch.ops.flash_attention import flash_memory_read_reference, tile_metadata
+
+    mk, mv, q, valid = c["m_key"], c["m_val"], c["q_key"], c["slot_valid"]
+    h, w = q.shape[1:3]
+    _, z, order, counts = tile_metadata(valid, c["bboxes"], h, w)
+    if out is None:
+        out, lse = flash_memory_read_reference(mk, mv, q, valid, order, counts, z)
+    d_out = d_out.to(q.dtype).contiguous()
+    delta = (d_out.float() * out.float()).sum(dim=-1).reshape(q.shape[0], -1)
+    return (mk, mv, q, valid, order, counts, d_out, lse, delta)
+
+
+def bwd_case(name):
+    """BWD_CASES[name] as backward-kernel arguments, d_out from the seed."""
+    c = bank_case(*BWD_CASES[name])
+    N, h, w = c["q_key"].shape[:3]
+    g = torch.Generator().manual_seed(100 + BWD_CASES[name][5])
+    d_out = torch.randn(N, h, w, c["m_val"].shape[-1], generator=g).to("cuda")
+    return bwd_args(c, d_out)
+
+
+def compare_bwd(name, args) -> float:
+    """Backward kernel against its plain version on ``args`` (on the card);
+    raises past the tolerance or unless the wrapper counted exactly one
+    launch. Returns the largest max |g - plain| of dQ, dK, dV."""
+    from rmnet_tpu_torch.ops.flash_attention import flash_read_bwd, flash_read_bwd_reference
+
+    before = flash_read_bwd.launches
+    got = flash_read_bwd(*args)
+    torch.cuda.synchronize()
+    if flash_read_bwd.launches != before + 1:
+        raise AssertionError(f"{name}: the wrapper counted "
+                             f"{flash_read_bwd.launches - before} launches, want 1")
+    ref = flash_read_bwd_reference(*args)
+    bf16 = args[2].dtype == torch.bfloat16
+    rel = BWD_BF16_REL_TOL if bf16 else BWD_F32_REL_TOL
+    ok, errs, parts = True, [], []
+    for gname, g, r in zip(("dQ", "dK", "dV"), got, ref):
+        err, peak = (g.float() - r).abs().max().item(), r.abs().max().item()
+        good = bool(torch.isfinite(g).all()) and g.dtype == args[2].dtype and err <= rel * peak
+        ok &= good
+        errs.append(err)
+        parts.append(f"{gname} {err:.3e}/{peak:.3e}")
+    log(f"kernel_bwd {name}: max|g-plain|/max|plain| {', '.join(parts)} "
+        f"(<= {rel}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"backward kernel {name} disagrees with its plain version")
+    return max(errs)
+
+
+def phase_kernel_bwd() -> None:
+    for name in BWD_CASES:
+        compare_bwd(name, bwd_case(name))
+
+
 # ----------------------------------------------------------------- engine
 def make_clip(T, H, W, n_obj):
     """bench.py's synthetic clip: uniform noise frames, boxes drifting down."""
@@ -207,20 +311,33 @@ def make_clip(T, H, W, n_obj):
 class _Record:
     """Replaces the function ``name`` that the step calls (a module-level
     name of rmnet_tpu_torch.models.rmnet) with one that keeps the arguments
-    and result of its last call; the call itself is unchanged."""
+    and result of each call (``calls``; ``args`` / ``result`` of the last);
+    the call itself is unchanged. With ``grads``, each call also keeps the
+    gradient that reaches its first output (``d_out``) in a backward pass."""
 
-    def __init__(self, name):
+    def __init__(self, name, grads=False):
         import rmnet_tpu_torch.models.rmnet as rmnet_mod
 
-        self.mod, self.name = rmnet_mod, name
+        self.mod, self.name, self.grads = rmnet_mod, name, grads
         self.real = getattr(rmnet_mod, name)
-        self.args = self.result = None
+        self.calls = []
+
+    @property
+    def args(self):
+        return self.calls[-1]["args"]
+
+    @property
+    def result(self):
+        return self.calls[-1]["result"]
 
     def __enter__(self):
         def record(*args, **kwargs):
-            self.args = (args, kwargs)
-            self.result = self.real(*args, **kwargs)
-            return self.result
+            result = self.real(*args, **kwargs)
+            call = dict(args=(args, kwargs), result=result)
+            if self.grads:
+                result[0].register_hook(lambda g: call.__setitem__("d_out", g))
+            self.calls.append(call)
+            return result
 
         setattr(self.mod, self.name, record)
         return self
@@ -337,6 +454,24 @@ def _time_ms(fn, iters, flush):
     return statistics.median(times)
 
 
+def _inbox_positions(c) -> int:
+    """In-box valid memory positions of read inputs ``c``: the positions
+    whose keys and values can be nonzero, the work a read needs."""
+    h, w = c["q_key"].shape[1:3]
+    ys = torch.arange(h, device=c["q_key"].device) * 16
+    xs = torch.arange(w, device=c["q_key"].device) * 16
+    b = c["bboxes"][:, :, :, None, None]
+    cell = ((ys[:, None] >= b[:, :, 2]) & (ys[:, None] <= b[:, :, 3])
+            & (xs[None] >= b[:, :, 0]) & (xs[None] <= b[:, :, 1]))
+    return int((cell & c["slot_valid"][:, :, None, None]).sum())
+
+
+def _bound(flops, nbytes, dtype) -> tuple:
+    peak = H100_BF16_FLOPS if dtype == torch.bfloat16 else H100_F32_FLOPS
+    op_ms, byte_ms = flops / peak * 1e3, nbytes / H100_BYTES * 1e3
+    return max(op_ms, byte_ms), ("operations" if op_ms >= byte_ms else "bytes")
+
+
 def read_bound(c) -> tuple:
     """Least time for the read on these inputs: the in-box valid memory
     positions' K/V read once, q read once, out and lse written once; the
@@ -344,18 +479,26 @@ def read_bound(c) -> tuple:
     mk, mv, q = c["m_key"], c["m_val"], c["q_key"]
     N, S, h, w, Ck = mk.shape
     Cv = mv.shape[-1]
-    ys = torch.arange(h, device=q.device) * 16
-    xs = torch.arange(w, device=q.device) * 16
-    b = c["bboxes"][:, :, :, None, None]
-    cell = ((ys[:, None] >= b[:, :, 2]) & (ys[:, None] <= b[:, :, 3])
-            & (xs[None] >= b[:, :, 0]) & (xs[None] <= b[:, :, 1]))
-    inbox = int((cell & c["slot_valid"][:, :, None, None]).sum())
+    inbox = _inbox_positions(c)
     es = q.element_size()
     flops = 2.0 * h * w * inbox * (Ck + Cv)
     nbytes = (inbox * (Ck + Cv) + N * h * w * (Ck + Cv)) * es + N * h * w * 4
-    peak = H100_BF16_FLOPS if q.dtype == torch.bfloat16 else H100_F32_FLOPS
-    op_ms, byte_ms = flops / peak * 1e3, nbytes / H100_BYTES * 1e3
-    return max(op_ms, byte_ms), ("operations" if op_ms >= byte_ms else "bytes"), inbox, flops
+    return (*_bound(flops, nbytes, q.dtype), inbox, flops)
+
+
+def read_bwd_bound(c) -> tuple:
+    """Least time for the read's backward on these inputs: per in-box valid
+    position 2*Q*(3*Ck + 2*Cv) operations (S = q.K, dP = dO.V, dV, dK, dQ);
+    the bytes of K, V, dK, dV at those positions, q, dO and dQ, lse and D,
+    each read or written once."""
+    mk, mv, q = c["m_key"], c["m_val"], c["q_key"]
+    N, S, h, w, Ck = mk.shape
+    Cv = mv.shape[-1]
+    inbox = _inbox_positions(c)
+    es = q.element_size()
+    flops = 2.0 * h * w * inbox * (3 * Ck + 2 * Cv)
+    nbytes = (2 * inbox * (Ck + Cv) + N * h * w * (2 * Ck + Cv)) * es + 2 * N * h * w * 4
+    return (*_bound(flops, nbytes, q.dtype), inbox, flops)
 
 
 def sdpa_read(c):
@@ -369,6 +512,15 @@ def sdpa_read(c):
     return lambda: torch.nn.functional.scaled_dot_product_attention(
         q.reshape(N, 1, h * w, Ck), mk.reshape(N, 1, M, Ck),
         mv.reshape(N, 1, M, -1), attn_mask=bias[:, None, None, :])
+
+
+def sdpa_read_bwd(c, d_out):
+    """The backward alone of :func:`sdpa_read` with cotangent ``d_out``:
+    one PyTorch call for the same gradients; a yardstick only."""
+    leaves = {k: c[k].detach().requires_grad_(True) for k in ("m_key", "m_val", "q_key")}
+    out = sdpa_read(dict(c, **leaves))()
+    grad = d_out.reshape(out.shape).to(out.dtype)
+    return lambda: torch.autograd.grad(out, tuple(leaves.values()), grad, retain_graph=True)
 
 
 def phase_times(smi, run) -> tuple:
@@ -428,27 +580,38 @@ def phase_times(smi, run) -> tuple:
 # kernel-name patterns of the profile's buckets, first match wins
 _BUCKETS = (
     ("flash read kernel", ("flash_read_fwd",)),
+    ("flash read backward kernels", ("flash_read_bwd",)),
     ("layout transposes", ("nchwToNhwc", "nhwcToNchw")),
-    ("convolutions", ("xmma", "implicit_gemm", "conv", "cudnn", "cutlass", "gemm", "wgrad")),
+    ("convolutions", ("xmma", "implicit_gemm", "conv", "cudnn", "cutlass", "gemm", "wgrad",
+                      "dgrad")),
     ("batch norm", ("batch_norm",)),
+    ("optimizer (Adam)", ("multi_tensor_apply",)),
     ("host copies", ("Memcpy", "Memset")),
 )
 
 
 def profile_engine(smi, run, frame_ms) -> dict:
-    """Device time by kernel over one run_video_labels (torch.profiler).
-    Writes the kernel table to build/chip_smoke/profile.txt and prints the time
-    by bucket; the busy share is kernel time per frame over ``frame_ms``,
-    the unprofiled wall time per frame."""
+    """Device time by kernel over one run_video_labels (torch.profiler),
+    per frame; the kernel table goes to build/chip_smoke/profile.txt."""
+    eng = run["engine"]
+    frames, masks, n_objects = run["clip"]
+    return profile_device(smi, lambda: eng.run_video_labels(frames, masks, n_objects),
+                          len(frames) - 1, "frame", frame_ms, "profile.txt")
+
+
+def profile_device(smi, fn, n, unit, wall_ms, out_name) -> dict:
+    """Device time by kernel over one call of ``fn`` that does ``n`` units
+    of work (torch.profiler). Writes the kernel table to
+    build/chip_smoke/``out_name`` and prints the time per unit by bucket;
+    the busy share is kernel time per unit over ``wall_ms``, the
+    unprofiled wall time per unit."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    eng = run["engine"]
-    frames, masks, n_objects = run["clip"]
-    n = len(frames) - 1
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        eng.run_video_labels(frames, masks, n_objects)
+        fn()
+        torch.cuda.synchronize()
     kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     kernels.sort(key=lambda e: -e.self_device_time_total)
     buckets = {name: 0.0 for name, _ in _BUCKETS}
@@ -459,14 +622,195 @@ def profile_engine(smi, run, frame_ms) -> dict:
         buckets[name] += e.self_device_time_total / 1e3 / n
     busy = sum(buckets.values())
     OUT_DIR.mkdir(parents=True, exist_ok=True)
-    (OUT_DIR / "profile.txt").write_text(smi + "\n" + "\n".join(
+    (OUT_DIR / out_name).write_text(smi + "\n" + "\n".join(
         f"{e.self_device_time_total / 1e3:10.3f} ms x{e.count:<6d} {e.key}" for e in kernels))
-    log(f"profile: device kernels {busy:.3f} ms per frame, {busy / frame_ms:.1%} of "
-        f"the {frame_ms:.3f} ms wall per frame, {sum(e.count for e in kernels) / n:.0f} "
-        f"kernels per frame [{smi}]")
+    log(f"profile: device kernels {busy:.3f} ms per {unit}, {busy / wall_ms:.1%} of "
+        f"the {wall_ms:.3f} ms wall per {unit}, {sum(e.count for e in kernels) / n:.0f} "
+        f"kernels per {unit} [{smi}]")
     for name, v in sorted(buckets.items(), key=lambda kv: -kv[1]):
-        log(f"  {v:8.3f} ms/frame  {v / busy:6.1%}  {name}")
-    return dict(buckets_ms_per_frame=buckets, busy_ms_per_frame=busy)
+        if v > 0:
+            log(f"  {v:8.3f} ms/{unit}  {v / busy:6.1%}  {name}")
+    return dict(buckets_ms=buckets, busy_ms=busy, unit=unit)
+
+
+# ------------------------------------------------------------------ train
+TRAIN_STEPS = 5  # timed, after one warm-up step
+GRAD_REL_TOL = 1e-3  # flash against dense gradient, per parameter tensor
+
+
+def make_train_batch(cfg, seed=0) -> dict:
+    """A synthetic batch of the reference's training shape from a numpy
+    seed: TRAIN.BATCH_SIZE clips of TRAIN.N_MAX_FRAMES frames at the
+    465x465 crop with TRAIN.N_MAX_OBJECTS objects, the last one appearing
+    at t=1. Frames are noise (as make_clip), masks drifting rectangles,
+    flows smooth random fields within +-3 px (flows[:, 0] = 0)."""
+    tr = cfg.TRAIN
+    B, T, n_obj = tr.BATCH_SIZE, tr.N_MAX_FRAMES, tr.N_MAX_OBJECTS
+    H, W = tr.AUGMENTATION.CROP_HSIZE, tr.AUGMENTATION.CROP_WSIZE
+    K = n_obj + 1
+    rs = np.random.RandomState(seed)
+    frames = rs.rand(B, T, H, W, 3).astype(np.float32) * 2 - 1
+    labels = np.zeros((B, T, H, W), np.uint8)
+    for b in range(B):
+        for k in range(1, K):
+            y0, x0 = rs.randint(0, min(H, W) - 160, 2)
+            hh, ww = rs.randint(60, 150, 2)
+            dy, dx = rs.randint(-8, 9, 2)
+            for t in range(1 if k == n_obj else 0, T):
+                y, x = y0 + dy * t, x0 + dx * t
+                labels[b, t, max(y, 0):y + hh, max(x, 0):x + ww] = k
+    masks = (labels[:, :, None] == np.arange(K)[:, None, None]).astype(np.float32)
+    yy, xx = np.mgrid[0:H, 0:W].astype(np.float32) / max(H, W)
+    flows = np.zeros((B, T, H, W, 2), np.float32)
+    for b in range(B):
+        for t in range(1, T):
+            for c in range(2):
+                amp, ph = rs.uniform(1.0, 3.0), rs.uniform(0.0, 2 * np.pi)
+                fy, fx = rs.uniform(0.5, 2.0, 2)
+                flows[b, t, :, :, c] = amp * np.sin(2 * np.pi * (fy * yy + fx * xx) + ph)
+    n_objects = np.tile(np.array([n_obj - 1] + [n_obj] * (T - 1), np.int32), (B, 1))
+    return dict(frames=frames, masks=masks, flows=flows, n_objects=n_objects)
+
+
+def grad_agreement(cfg, trainer, batch, when, check) -> dict:
+    """One step's gradient through the flash read against the same step
+    through the dense read, per RMNet parameter tensor: ||g_flash - g_dense||
+    <= GRAD_REL_TOL ||g_dense||, or max |g_flash - g_dense| <= 1e-7 of the
+    largest dense gradient (the escape of tests/test_train_grad_parity.py);
+    raises past it when ``check``. Also reports the floor: the flash step
+    run twice, which differs by the order of the backward's atomic sums
+    (cuDNN, bilinear upsampling, scatter_add) left over where the
+    constant-ones gradients cancel. Records the first flash pass's reads and
+    the gradients reaching them."""
+    from rmnet_tpu_torch.train import make_loss_fn
+
+    params = dict(trainer.rmnet.named_parameters())
+    dense = dataclasses.replace(trainer.apply, use_flash_attention=False)
+    grads = []
+    with _Record("flash_memory_read", grads=True) as rec:
+        for apply in (trainer.apply, trainer.apply, dense):
+            loss = make_loss_fn(cfg, apply, trainer.tflownet)(batch)
+            grads.append(dict(zip(params, torch.autograd.grad(loss, list(params.values())))))
+    flash, again, dense_g = grads
+    gmax = max(g.abs().max().item() for g in dense_g.values())
+
+    def worst_and_bad(a, b):
+        worst, bad = 0.0, []
+        for name in params:
+            err, ref = (a[name] - b[name]).norm().item(), b[name].norm().item()
+            worst = max(worst, err / ref if ref > 0 else (0.0 if err == 0 else math.inf))
+            if err > GRAD_REL_TOL * ref and (a[name] - b[name]).abs().max().item() > 1e-7 * gmax:
+                bad.append((name, err / (ref + 1e-30)))
+        return worst, bad
+
+    worst, bad = worst_and_bad(flash, dense_g)
+    floor, _ = worst_and_bad(again, flash)
+    verdict = ("ok" if not bad else "FAIL") if check else "reported only"
+    log(f"train ({when}): gradient through the flash read vs the dense read, {len(params)} "
+        f"tensors: largest ||diff||/||dense|| {worst:.3e}, {len(bad)} past {GRAD_REL_TOL} "
+        f"(escape 1e-7 * {gmax:.3e}); the flash step twice: largest {floor:.3e}; {verdict}")
+    if check and bad:
+        raise AssertionError(f"flash and dense gradients disagree: {bad[:8]}")
+    return dict(reads=rec.calls[:len(rec.calls) // 2], worst_rel=worst, floor_rel=floor)
+
+
+def phase_train(models) -> dict:
+    from rmnet_tpu_torch.config import Config
+    from rmnet_tpu_torch.ops.flash_attention import flash_memory_read, flash_read_bwd
+    from rmnet_tpu_torch.train import Trainer
+
+    cfg = Config()
+    tr = cfg.TRAIN
+    if not (tr.NETWORK == "RMNet" and tr.FLASH_ATTENTION and tr.MEMORIZE_EVERY == 1):
+        raise AssertionError("the trainer's defaults are no longer RMNet, flash read, "
+                             "memorize_every=1")
+    trainer = Trainer(cfg, *models)
+    batch = trainer.to_device(make_train_batch(cfg))
+    B, T = batch["frames"].shape[:2]
+    params = dict(trainer.rmnet.named_parameters())
+    before = {k: p.detach().clone() for k, p in params.items()}
+    # on the first step: the floor grows as training shrinks the gradients
+    agree = grad_agreement(cfg, trainer, batch, "first step", check=True)
+
+    losses, walls, per_step = [], [], []
+    torch.cuda.reset_peak_memory_stats()
+    flash_memory_read.launches = flash_read_bwd.launches = 0
+    for _ in range(1 + TRAIN_STEPS):
+        f0, b0 = flash_memory_read.launches, flash_read_bwd.launches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(trainer.train_step(batch))
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        per_step.append((flash_memory_read.launches - f0, flash_read_bwd.launches - b0))
+    launches = dict(fwd=flash_memory_read.launches, bwd=flash_read_bwd.launches)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    changed = {k: not torch.equal(p.detach(), before[k]) for k, p in params.items()}
+    stuck = [k for k, p in params.items()
+             if p.grad is not None and bool(p.grad.abs().max() > 0) and not changed[k]]
+    log(f"train: B={B} T={T} {tuple(batch['frames'].shape[2:4])} f32 flash, "
+        f"losses {[round(x, 6) for x in losses]}, launches per step (fwd, bwd) {per_step}, "
+        f"{sum(changed.values())} of {len(params)} parameter tensors changed, peak memory "
+        f"{peak_gb:.2f} GB")
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"non-finite training loss: {losses}")
+    if any(s != (T - 1, T - 1) for s in per_step):
+        raise AssertionError(f"launches per step {per_step}, want ({T - 1}, {T - 1}) each")
+    if not any(changed.values()) or stuck:
+        raise AssertionError(f"parameters with a gradient did not change: {stuck[:8]}")
+
+    later = grad_agreement(cfg, trainer, batch, f"after {1 + TRAIN_STEPS} steps", check=False)
+    names = ("m_key", "m_val", "q_key", "slot_valid", "bboxes")
+    errs, last = [], None
+    for t, call in enumerate(agree["reads"], start=1):
+        (args, kwargs), (out, lse) = call["args"], call["result"]
+        c = dict(zip(names, (a.detach() for a in args)), **kwargs)
+        last = (c, bwd_args(c, call["d_out"], out.detach(), lse))
+        errs.append(compare_bwd(f"first_step_read_t{t}", last[1]))
+    grads = {k: {"flash_vs_dense": g["worst_rel"], "flash_twice": g["floor_rel"]}
+             for k, g in (("first_step", agree), ("after_steps", later))}
+    return dict(trainer=trainer, batch=batch, losses=losses, walls_s=walls,
+                launches=launches, peak_gb=peak_gb, grads=grads, last_read=last,
+                max_abs_err=max(errs))
+
+
+def phase_train_times(smi, train) -> tuple:
+    from rmnet_tpu_torch.ops.flash_attention import flash_read_bwd, flash_read_bwd_reference
+
+    B = train["batch"]["frames"].shape[0]
+    step_ms = statistics.median(train["walls_s"][1:]) * 1e3
+    log(f"time train: {step_ms:.3f} ms per step, {B / step_ms * 1e3:.3f} clips/s (median "
+        f"of {TRAIN_STEPS} steps after 1 warm-up, loss.item() included), peak memory "
+        f"{train['peak_gb']:.2f} GB [{smi}]")
+    c, args = train["last_read"]
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    ms = _time_ms(lambda: flash_read_bwd(*args), 20, flush)
+    plain_ms = _time_ms(lambda: flash_read_bwd_reference(*args), 5, flush)
+    library_ms = _time_ms(sdpa_read_bwd(c, args[6]), 20, flush)
+    bound_ms, bound_by, inbox, flops = read_bwd_bound(c)
+    N, S, h, w = c["m_key"].shape[:4]
+    order, counts = args[4], args[5]
+    log(f"time flash_read_bwd: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa backward "
+        f"over the dense bank {library_ms:.4f} ms, bound {bound_ms:.4f} ms by {bound_by} "
+        f"({flops / 1e9:.2f} GFLOP over {inbox} in-box valid positions of {N * S * h * w}; "
+        f"{int(counts.sum())} active tiles of {order.numel()}), "
+        f"{flops / ms / 1e9:.2f} TFLOP/s, launches per step "
+        f"{train['launches']['bwd'] / (1 + TRAIN_STEPS):.0f}; N={N} S={S} h={h} w={w} "
+        f"{c['q_key'].dtype} [{smi}]")
+    trainer, batch = train["trainer"], train["batch"]
+    prof = profile_device(smi, lambda: trainer.train_step(batch), 1, "step", step_ms,
+                          "profile_train.txt")
+    row = dict(
+        name="flash_read_bwd", route="cuda",
+        source="rmnet_tpu_torch/csrc/flash_read_bwd.cu",
+        replaces="rmnet_tpu/ops/flash_attention.py:335",
+        launches=train["launches"]["bwd"], max_abs_err=train["max_abs_err"], ms=ms,
+        plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
+    )
+    return row, dict(step_ms=step_ms, clips_per_s=B / step_ms * 1e3,
+                     walls_s=train["walls_s"], losses=train["losses"],
+                     peak_gb=train["peak_gb"], grads=train["grads"], profile=prof)
 
 
 def main() -> int:
@@ -476,17 +820,26 @@ def main() -> int:
 
     report = {"card": smi, "build_s": phase_build()}
     phase_kernel()
+    phase_kernel_bwd()
     rmnet, tfn = build_models(seed=0)
-    run = phase_engine((rmnet.state_dict(), tfn.state_dict()))
-    del rmnet, tfn
+    models = (rmnet.state_dict(), tfn.state_dict())
+    run = phase_engine(models)
     report["step_f32"] = dict(mem_err=run["step_mem_err"], mem_peak=run["step_mem_peak"],
                               est_err=run["step_err"])
-    row, report["engine"] = phase_times(smi, run)
-    report["kernels"] = [row]
+    fwd_row, report["engine"] = phase_times(smi, run)
     report["profile"] = profile_engine(smi, run, report["engine"]["frame_ms"])
+    del run
+    train = phase_train(models)
+    bwd_row, report["train"] = phase_train_times(smi, train)
+    by_path = {"engine": fwd_row["launches"], "train": train["launches"]["fwd"]}
+    del train
+    fwd_row.update(launches=sum(by_path.values()), launches_by_path=by_path)
+    bwd_row.update(launches_by_path={"engine": 0, "train": bwd_row["launches"]})
+    rows = [fwd_row, bwd_row]
+    report["kernels"] = rows
     OUT_DIR.mkdir(parents=True, exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(report, indent=1))
-    log(json.dumps({"kernels": [row]}))
+    log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -11,6 +11,32 @@ from typing import Tuple
 class Const:
     DATASET_MEAN: Tuple[float, float, float] = (0.485, 0.456, 0.406)
     DATASET_STD: Tuple[float, float, float] = (0.229, 0.224, 0.225)
+    IGNORE_IDX: int = 255
+
+
+@dataclass
+class Augmentation:
+    # the training crop (reference configs: 465 x 465)
+    CROP_HSIZE: int = 465
+    CROP_WSIZE: int = 465
+
+
+@dataclass
+class Train:
+    BATCH_SIZE: int = 4
+    N_EPOCHS: int = 200
+    N_MAX_OBJECTS: int = 3
+    N_MAX_FRAMES: int = 3
+    NETWORK: str = "RMNet"  # 'RMNet' or 'TinyFlowNet'
+    LEARNING_RATE: float = 1e-5
+    BETAS: Tuple[float, float] = (0.9, 0.999)
+    WEIGHT_DECAY: float = 0.0
+    MEMORIZE_EVERY: int = 1
+    # the block-sparse flash read with its backward kernel; False reads the
+    # bank densely (the JAX default is False only because Mosaic kernels
+    # cannot compile on a CPU)
+    FLASH_ATTENTION: bool = True
+    AUGMENTATION: Augmentation = field(default_factory=Augmentation)
 
 
 @dataclass
@@ -24,4 +50,5 @@ class Test:
 @dataclass
 class Config:
     CONST: Const = field(default_factory=Const)
+    TRAIN: Train = field(default_factory=Train)
     TEST: Test = field(default_factory=Test)

@@ -1,5 +1,5 @@
-"""RMNet: regional space-time-memory network, inference path (counterpart of
-rmnet_tpu/models/rmnet.py; reference models/rmnet.py).
+"""RMNet: regional space-time-memory network, inference and training paths
+(counterpart of rmnet_tpu/models/rmnet.py; reference models/rmnet.py).
 
 Modules run in NCHW and keep the reference's state-dict names. The per-frame
 control flow lives in :class:`RMNetApply`, as in the JAX package:
@@ -11,7 +11,10 @@ control flow lives in :class:`RMNetApply`, as in the JAX package:
     ``torch.cat``-grown bank; past capacity the oldest slot is evicted;
   * the previous frame always rides one extra, ephemeral slot;
   * keys/values are masked by the /16 regional map, and masked-out valid
-    positions keep score 0 and still take softmax mass, as in the reference.
+    positions keep score 0 and still take softmax mass, as in the reference;
+  * ``step`` (inference) writes the ring in place; ``forward_video``
+    (training, backprop through time) builds each frame's bank out of place,
+    since the memory read saves the bank for its backward.
 
 Constants 32.0605 / -16.1181 (reference models/rmnet.py:442-448) equal
 log(eps / (1 - eps)) for the aggregation clamp eps = 1e-7.
@@ -23,13 +26,15 @@ import dataclasses
 import math
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from rmnet_tpu_torch.models.resnet import ResNet50Trunk
 from rmnet_tpu_torch.ops.aggregation import soft_aggregation
-from rmnet_tpu_torch.ops.att_map import regional_attention_small
+from rmnet_tpu_torch.ops.att_map import (regional_attention_small,
+                                         warped_regional_attention_small)
 from rmnet_tpu_torch.ops.flash_attention import flash_memory_read
 from rmnet_tpu_torch.ops.pad import divide_pads, pad_divide_by, unpad
 from rmnet_tpu_torch.ops.warp import backward_warp
@@ -200,6 +205,17 @@ def memory_read(m_key, m_val, q_key, q_val, slot_valid):
     return torch.cat([mem.to(q_val.dtype), q_val], dim=-1), p
 
 
+def _slot_valid(capacity: int, cursor: int, commit: bool, device) -> torch.Tensor:
+    """(capacity + 1,) bool validity of the bank view: a slot is valid below
+    the OLD cursor, the ring slot written this step is excluded (prev rides
+    the ephemeral slot), the ephemeral slot ``capacity`` always is."""
+    idx = torch.arange(capacity + 1, device=device)
+    valid = idx < min(cursor, capacity)
+    if commit:
+        valid &= idx != cursor % capacity
+    return valid | (idx == capacity)
+
+
 class RMNet(nn.Module):
     """Container of the RMNet sub-networks (reference state-dict names)."""
 
@@ -282,10 +298,20 @@ class RMNetApply:
 
     def get_att_small(self, prev_mask, flow, out_hw, offset):
         """Warp the previous mask by ``flow`` (B, 2, H, W) and rasterize its
-        dilated boxes on the /16 query grid -> (B, K, h, w). The background
-        channel is not warped: slot 0 never reaches the box op."""
+        dilated boxes on the /16 query grid -> (B, K, h, w).
+
+        With autograd on (training) all K channels are warped through the
+        fused op, whose gradient is the channel-uniform splat of the map's
+        constant-ones gradient: that constant only cancels through the
+        estimate's softmax when every channel gets it (rmnet_tpu/models/
+        rmnet.py:504-509). Otherwise the background channel is not warped:
+        slot 0 never reaches the box op, so the map is the same."""
         if flow is None:
             expt = prev_mask
+        elif torch.is_grad_enabled():
+            return warped_regional_attention_small(
+                prev_mask, flow.permute(0, 2, 3, 1), out_hw, offset, 16,
+                self.prob_threshold, self.n_pts_threshold, self.n_bbox_loose_pixels)
         else:
             warped, _ = backward_warp(prev_mask[:, 1:].permute(0, 2, 3, 1),
                                       flow.permute(0, 2, 3, 1))
@@ -360,33 +386,10 @@ class RMNetApply:
         state.values[:, :, S] = prev_v
         state.bboxes[:, :, S] = prev_box
 
-        # validity uses the OLD cursor; a ring slot just written is excluded
-        # for this step (prev rides the ephemeral slot); the ephemeral slot
-        # is always valid
-        idx = torch.arange(S + 1, device=state.keys.device)
-        slot_valid = idx < min(state.cursor, S)
-        if commit:
-            slot_valid &= idx != write_pos
-        slot_valid |= idx == S
-
-        H, W = frame.shape[-2:]
-        lw, uw, lh, uh = divide_pads(H, W, 16)
-        out_hw = ((H + lh + uh) // 16, (W + lw + uw) // 16)
-        att_small = self.get_att_small(state.prev_mask, flow, out_hw, (lh, lw))
-        logit = self.segment(frame, att_small, state.keys, state.values, slot_valid,
-                             obj_valid, mem_bboxes=state.bboxes)
-
-        # new-object injection (models/rmnet.py:436-442)
-        exist = state.exist
-        if any_new:
-            newly = _present_objects(gt_mask) & ~exist
-            inj = gt_mask.to(logit.dtype) * NEW_OBJECT_SCALE + NEW_OBJECT_BIAS
-            logit = torch.where(newly[:, :, None, None], inj, logit)
-            exist = exist | newly
-        # suppress objects not revealed yet (models/rmnet.py:444-448)
-        logit = torch.where(exist[:, :, None, None], logit,
-                            torch.full_like(logit, SUPPRESSED))
-        est_mask = torch.softmax(logit, dim=1)
+        slot_valid = _slot_valid(S, state.cursor, commit, state.keys.device)
+        est_mask, exist = self._segment_frame(
+            state.prev_mask, state.exist, frame, flow, gt_mask, any_new, obj_valid,
+            state.keys, state.values, state.bboxes, slot_valid)
         new_state = dataclasses.replace(
             state,
             cursor=state.cursor + int(commit),
@@ -395,6 +398,76 @@ class RMNetApply:
             exist=exist,
         )
         return new_state, est_mask
+
+    def _segment_frame(self, prev_mask, exist, frame, flow, gt_mask, any_new,
+                       obj_valid, keys, values, bboxes, slot_valid):
+        """Segment ``frame`` against the bank, inject new objects, suppress
+        unrevealed ones -> (est_mask (B, K, H, W), exist)."""
+        H, W = frame.shape[-2:]
+        lw, uw, lh, uh = divide_pads(H, W, 16)
+        out_hw = ((H + lh + uh) // 16, (W + lw + uw) // 16)
+        att_small = self.get_att_small(prev_mask, flow, out_hw, (lh, lw))
+        logit = self.segment(frame, att_small, keys, values, slot_valid, obj_valid,
+                             mem_bboxes=bboxes)
+
+        # new-object injection (models/rmnet.py:436-442)
+        if any_new:
+            newly = _present_objects(gt_mask) & ~exist
+            inj = gt_mask.to(logit.dtype) * NEW_OBJECT_SCALE + NEW_OBJECT_BIAS
+            logit = torch.where(newly[:, :, None, None], inj, logit)
+            exist = exist | newly
+        # suppress objects not revealed yet (models/rmnet.py:444-448)
+        logit = torch.where(exist[:, :, None, None], logit,
+                            torch.full_like(logit, SUPPRESSED))
+        return torch.softmax(logit, dim=1), exist
+
+    def forward_video(self, frames, masks, flows, n_objects) -> torch.Tensor:
+        """Whole-clip forward with backprop through time (training; the JAX
+        package's forward_video, rmnet_tpu/models/rmnet.py:921-984).
+
+        frames (B, T, H, W, 3), masks (B, T, K, H, W) one-hot, flows
+        (B, T, H, W, 2) backward flows (flows[:, t] maps t -> t-1), n_objects
+        (B, T) on the host -> est (B, T, K, H, W); frame 0's estimate is the
+        ground truth. The bank has capacity max(T-1, 1), so it never evicts.
+        Each frame's bank is built out of place (committed slots ++ prev),
+        because the memory read saves it for the backward pass.
+        """
+        B, T, K, H, W = masks.shape
+        n_objects = np.asarray(n_objects.cpu() if torch.is_tensor(n_objects) else n_objects)
+        ks = torch.arange(K, device=masks.device)
+        n_max = torch.as_tensor(n_objects.max(axis=1), device=masks.device)
+        obj_valid = (ks[None] >= 1) & (ks[None] <= n_max[:, None])  # (B, K)
+
+        # frame-level flags (reference models/rmnet.py:404-408)
+        any_new = np.zeros((T,), bool)
+        any_new[1:] = np.any(n_objects[:, 1:] != n_objects[:, :-1], axis=0)
+        commit = np.array([t % self.memorize_every == 0 for t in range(T)]) | any_new
+
+        capacity = max(T - 1, 1)
+        frames_c = frames.permute(0, 1, 4, 2, 3)   # (B, T, 3, H, W)
+        flows_c = flows.permute(0, 1, 4, 2, 3)     # (B, T, 2, H, W)
+        prev_mask, prev_frame = masks[:, 0], frames_c[:, 0]
+        exist = _present_objects(masks[:, 0])
+        slots = [None] * capacity                  # committed (k, v, box) per slot
+        cursor = 0
+        est = [masks[:, 0]]
+        for t in range(1, T):
+            prev = self.memorize(prev_frame, prev_mask, obj_valid)
+            write_pos = cursor % capacity
+            if commit[t - 1]:
+                slots[write_pos] = prev
+            filled = [s if s is not None else tuple(torch.zeros_like(x) for x in prev)
+                      for s in slots]
+            keys, values, bboxes = (torch.stack([s[i] for s in filled] + [prev[i]], dim=2)
+                                    for i in range(3))
+            slot_valid = _slot_valid(capacity, cursor, bool(commit[t - 1]), masks.device)
+            est_t, exist = self._segment_frame(
+                prev_mask, exist, frames_c[:, t], flows_c[:, t], masks[:, t],
+                bool(any_new[t]), obj_valid, keys, values, bboxes, slot_valid)
+            est.append(est_t)
+            cursor += int(commit[t - 1])
+            prev_mask, prev_frame = est_t, frames_c[:, t]
+        return torch.stack(est, dim=1)
 
     def init_state(self, frame0, masks0, capacity: int, dtype=torch.float32,
                    key_dim: int = 128, val_dim: int = 512) -> VOSState:

@@ -72,5 +72,19 @@ class TinyFlowNet(nn.Module):
         flow2 = F.interpolate(flow2, size=(Hp, Wp), mode="bilinear", align_corners=False)
         return unpad(flow2, pads, spatial_axes=(-2, -1))
 
+    def video_forward(self, frames: torch.Tensor) -> torch.Tensor:
+        """Per-video forward (the JAX package's ``TinyFlowNet.__call__``):
+        frames (B, T, H, W, 3) -> backward flows (B, T, H, W, 2), where
+        flows[:, t] maps frame t to t-1 and flows[:, 0] = 0. The T-1 pairs
+        run as one batch."""
+        B, T, H, W, C = frames.shape
+        if T == 1:
+            return frames.new_zeros(B, T, H, W, 2)
+        x = frames.permute(0, 1, 4, 2, 3)
+        curr = x[:, 1:].reshape(B * (T - 1), C, H, W)
+        prev = x[:, :-1].reshape(B * (T - 1), C, H, W)
+        flows = self.pair_forward(curr, prev).permute(0, 2, 3, 1).reshape(B, T - 1, H, W, 2)
+        return torch.cat([flows.new_zeros(B, 1, H, W, 2), flows], dim=1)
+
     def forward(self, img0, img1):
         return self.pair_forward(img0, img1)

@@ -1,25 +1,34 @@
-"""Block-sparse regional memory read (flash style): tile metadata, the plain
-PyTorch version and the wrapper of the hand-written CUDA kernel.
+"""Block-sparse regional memory read (flash style) with its gradient: tile
+metadata, the plain PyTorch versions and the wrappers of the hand-written
+CUDA kernels.
 
-Counterpart of rmnet_tpu/ops/flash_attention.py (forward only). The memory
-read computes ``softmax_m(q . k_m / sqrt(Ck) + bias_m) . v_m`` over
-M = S*h*w memory positions, with bias 0 on valid slots and -1e30 on invalid
-ones. Memory keys/values are exactly zero outside each slot's regional box
-(``memorize`` multiplies them by the rasterized /16 attention map), so any
-memory tile without an in-box valid position contributes scores of exactly
-0 and values of exactly 0. Such tiles are never read; their ``z`` valid
-positions add ``z * exp(0 - m)`` to the softmax denominator in closed form.
+Counterpart of rmnet_tpu/ops/flash_attention.py. The memory read computes
+``softmax_m(q . k_m / sqrt(Ck) + bias_m) . v_m`` over M = S*h*w memory
+positions, with bias 0 on valid slots and -1e30 on invalid ones. Memory
+keys/values are exactly zero outside each slot's regional box (``memorize``
+multiplies them by the rasterized /16 attention map), so any memory tile
+without an in-box valid position contributes scores of exactly 0 and values
+of exactly 0. Such tiles are never read; their ``z`` valid positions add
+``z * exp(0 - m)`` to the softmax denominator in closed form.
 
-The kernel (rmnet_tpu_torch/csrc/flash_read_fwd.cu) replaces the Pallas TPU
-kernel ``_kernel`` of rmnet_tpu/ops/flash_attention.py:61 (pallas_call at
-:226). It is bound by operations: 2*N*Q*M_active*(Ck+Cv) FLOP against the
-active K/V bytes read once, an intensity of about Q (1620 at 480p) FLOP per
-byte, well above the H100's ridge of about 295. It is built with nvcc for
-sm_90a at first use into build/kernels/ and bound with ctypes.
+Two kernels, each built with nvcc for sm_90a at first use into
+build/kernels/ and bound with ctypes:
 
-The wrapper ``flash_memory_read`` computes the tile metadata, then takes the
-plain version only for tensors on the CPU; for CUDA tensors it launches the
-kernel (``flash_read_fwd``) or raises.
+* rmnet_tpu_torch/csrc/flash_read_fwd.cu replaces the Pallas TPU kernel
+  ``_kernel`` of rmnet_tpu/ops/flash_attention.py:61 (pallas_call at :226).
+  It is bound by operations: 2*N*Q*M_active*(Ck+Cv) FLOP against the
+  active K/V bytes read once, an intensity of about Q (1620 at 480p) FLOP
+  per byte, well above the H100's ridge of about 295.
+* rmnet_tpu_torch/csrc/flash_read_bwd.cu replaces ``_bwd_kernel``
+  (:239, pallas_call at :335): dQ, and dK/dV of the active tiles, from the
+  forward's lse, 2*N*Q*M_active*(3*Ck+2*Cv) FLOP, also bound by operations.
+  As in the JAX package, D = rowsum(dO * O) and the skipped tiles' exact
+  rank-1 dK/dV (every valid position there has k = v = 0 and probability
+  exp(-lse)) are computed in torch around the kernel.
+
+``flash_memory_read`` is differentiable (:class:`FlashMemoryRead`). It
+computes the tile metadata, then takes the plain versions only for tensors
+on the CPU; for CUDA tensors it launches the kernels or raises.
 """
 
 from __future__ import annotations
@@ -35,15 +44,16 @@ from typing import Optional, Tuple
 
 import torch
 
-# memory positions per tile of the CUDA kernel (BM in flash_read_fwd.cu);
-# the Pallas kernel's tile is 512, the result does not depend on it
+# memory positions per tile of the CUDA kernels (BM in csrc/*.cu); the
+# Pallas kernel's tile is 512, the result does not depend on it
 KERNEL_TILE = 64
-_CK = 128  # key width the kernel takes
+_CK = 128  # key width the kernels take
 _CV_SLICE = 128  # value columns per block
+_BWD_CV = (128, 256, 512)  # value widths the backward kernel takes
 _GRID = 16  # full-resolution pixels per cell of the /16 grid memorize rasterizes on
 
 _REPO = Path(__file__).resolve().parents[2]
-_SOURCE = _REPO / "rmnet_tpu_torch" / "csrc" / "flash_read_fwd.cu"
+_CSRC = _REPO / "rmnet_tpu_torch" / "csrc"
 _BUILD_DIR = _REPO / "build" / "kernels"
 _NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
                "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -99,6 +109,17 @@ def tile_metadata(
     return tile_active, z, order, counts
 
 
+def _listed_positions(order, counts, slot_valid, hw, mt):
+    """(N, M) bool: valid positions inside the tiles listed in
+    ``order[n, :counts[n]]``, the positions a kernel reads."""
+    N, nt = order.shape
+    listed = (torch.arange(nt, device=order.device)[None] < counts[:, None])
+    active = torch.zeros(N, nt, dtype=torch.int32, device=order.device)
+    active = active.scatter_add_(1, order.long(), listed.to(torch.int32)) > 0
+    in_tile = active.repeat_interleave(mt, dim=1)[:, :slot_valid.shape[1] * hw]
+    return in_tile & slot_valid.repeat_interleave(hw, dim=1)
+
+
 def flash_memory_read_reference(
     m_key: torch.Tensor,       # (N, S, h, w, Ck)
     m_val: torch.Tensor,       # (N, S, h, w, Cv)
@@ -109,7 +130,8 @@ def flash_memory_read_reference(
     z: torch.Tensor,           # (N,) int32
     mt: int = KERNEL_TILE,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain PyTorch version of the kernel -> (out (N, h, w, Cv), lse (N, Q)).
+    """Plain PyTorch version of the forward kernel -> (out (N, h, w, Cv),
+    lse (N, Q)).
 
     Reads exactly the positions of the listed active tiles (invalid slots
     masked), adds the closed-form mass of the ``z`` skipped valid positions
@@ -119,12 +141,7 @@ def flash_memory_read_reference(
     Cv = m_val.shape[-1]
     hw = h * w
     M = S * hw
-    nt = order.shape[1]
-    listed = (torch.arange(nt, device=order.device)[None] < counts[:, None])
-    active = torch.zeros(N, nt, dtype=torch.int32, device=order.device)
-    active = active.scatter_add_(1, order.long(), listed.to(torch.int32)) > 0
-    in_tile = active.repeat_interleave(mt, dim=1)[:, :M]
-    use = in_tile & slot_valid.repeat_interleave(hw, dim=1)  # (N, M)
+    use = _listed_positions(order, counts, slot_valid, hw, mt)  # (N, M)
 
     qf = q_key.reshape(N, hw, Ck).float()
     kf = m_key.reshape(N, M, Ck).float()
@@ -144,10 +161,85 @@ def flash_memory_read_reference(
     return out.reshape(N, h, w, Cv).to(q_key.dtype), lse
 
 
-class _Library:
-    """The kernel's shared library, built from the checkout at first use."""
+def flash_read_bwd_reference(
+    m_key: torch.Tensor,       # (N, S, h, w, Ck)
+    m_val: torch.Tensor,       # (N, S, h, w, Cv)
+    q_key: torch.Tensor,       # (N, h, w, Ck)
+    slot_valid: torch.Tensor,  # (N, S) bool
+    order: torch.Tensor,       # (N, nt) int32 compacted active tiles
+    counts: torch.Tensor,      # (N,) int32
+    d_out: torch.Tensor,       # (N, h, w, Cv) cotangent of out
+    lse: torch.Tensor,         # (N, Q) float32, from the forward
+    delta: torch.Tensor,       # (N, Q) float32, rowsum(d_out * out)
+    mt: int = KERNEL_TILE,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of the backward kernel -> (dq (N, h, w, Ck),
+    dk_t (N, nt*mt, Ck), dv_t (N, nt*mt, Cv)), all float32.
 
-    def __init__(self):
+    Works over exactly the valid positions of the listed active tiles:
+    ``p = exp(s - lse)``, ``dV = p^T dO``, ``dS = p * (dO V^T - delta)``,
+    ``dK = dS^T q * scale``, ``dQ = dS K * scale``. dk_t / dv_t are zero at
+    the positions of unlisted tiles and past M, as the kernel's are.
+    """
+    N, S, h, w, Ck = m_key.shape
+    Cv = m_val.shape[-1]
+    hw = h * w
+    M = S * hw
+    Mp = order.shape[1] * mt
+    scale = 1.0 / math.sqrt(Ck)
+    use = _listed_positions(order, counts, slot_valid, hw, mt)  # (N, M)
+
+    qf = q_key.reshape(N, hw, Ck).float()
+    kf = m_key.reshape(N, M, Ck).float()
+    vf = m_val.reshape(N, M, Cv).float()
+    do = d_out.reshape(N, hw, Cv).float()
+    s = torch.einsum("nqc,nmc->nqm", qf, kf) * scale
+    # lse = +inf rows give exp(-inf) = 0
+    p = torch.where(use[:, None, :], torch.exp(s - lse[..., None]), torch.zeros_like(s))
+    dv = torch.einsum("nqm,nqc->nmc", p, do)
+    ds = p * (torch.einsum("nqc,nmc->nqm", do, vf) - delta[..., None])
+    dk = torch.einsum("nqm,nqc->nmc", ds, qf) * scale
+    dq = torch.einsum("nqm,nmc->nqc", ds, kf) * scale
+    pad = (0, 0, 0, Mp - M)
+    return (dq.reshape(N, h, w, Ck), torch.nn.functional.pad(dk, pad),
+            torch.nn.functional.pad(dv, pad))
+
+
+def merge_skipped_tiles(dk_t, dv_t, tile_active, slot_valid, q_key, d_out, lse,
+                        delta, m_shape, mt: int = KERNEL_TILE):
+    """dK/dV of the whole bank (flash_attention.py:346-372), float32: the
+    kernel's rows on active tiles, the exact closed form on the valid
+    positions of skipped tiles, zero on invalid positions.
+
+    A skipped tile's valid positions have k = v = 0 and probability
+    exp(-lse_q), so each gets dV = sum_q exp(-lse_q) dO_q and
+    dK = -scale sum_q exp(-lse_q) D_q q_q (one vector per row)."""
+    N, S, h, w, Ck = m_shape
+    hw = h * w
+    M = S * hw
+    Cv = dv_t.shape[-1]
+    scale = 1.0 / math.sqrt(Ck)
+    c = torch.exp(-lse)                                   # (N, Q); 0 where lse = +inf
+    dv_skip = torch.einsum("nq,nqv->nv", c, d_out.reshape(N, hw, Cv).float())
+    dk_skip = -scale * torch.einsum("nq,nqc->nc", c * delta,
+                                    q_key.reshape(N, hw, Ck).float())
+    act_pos = tile_active.repeat_interleave(mt, dim=1)[:, :M, None]
+    pos_valid = slot_valid.repeat_interleave(hw, dim=1)[:, :, None]
+    zero = torch.zeros((), device=dk_t.device)
+    dk = torch.where(act_pos, dk_t[:, :M].float(),
+                     torch.where(pos_valid, dk_skip[:, None], zero))
+    dv = torch.where(act_pos, dv_t[:, :M].float(),
+                     torch.where(pos_valid, dv_skip[:, None], zero))
+    return dk.reshape(N, S, h, w, Ck), dv.reshape(N, S, h, w, Cv)
+
+
+class _Library:
+    """One kernel's shared library, built from the checkout at first use."""
+
+    def __init__(self, name: str, argtypes):
+        self.name = name
+        self.source = _CSRC / f"{name}.cu"
+        self.argtypes = argtypes
         self.lib = None
         self.path: Optional[Path] = None
         self.build_seconds: Optional[float] = None
@@ -158,9 +250,9 @@ class _Library:
         yet (or always, with ``force_build``)."""
         if self.lib is not None and not force_build:
             return self.lib
-        src = _SOURCE.read_bytes()
+        src = self.source.read_bytes()
         tag = hashlib.sha256(src + " ".join(_NVCC_FLAGS).encode()).hexdigest()[:12]
-        path = _BUILD_DIR / f"libflash_read_fwd_{tag}.so"
+        path = _BUILD_DIR / f"lib{self.name}_{tag}.so"
         if force_build or not path.exists():
             cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
             nvcc = str(Path(cuda_home) / "bin" / "nvcc")
@@ -168,39 +260,46 @@ class _Library:
             tmp = path.with_suffix(f".{os.getpid()}.tmp")
             t0 = time.perf_counter()
             proc = subprocess.run(
-                [nvcc, *_NVCC_FLAGS, "-o", str(tmp), str(_SOURCE)],
+                [nvcc, *_NVCC_FLAGS, "-o", str(tmp), str(self.source)],
                 capture_output=True, text=True,
             )
             self.build_seconds = time.perf_counter() - t0
             self.build_log = proc.stdout + proc.stderr
             if proc.returncode != 0:
                 raise RuntimeError(
-                    f"nvcc failed ({proc.returncode}) on {_SOURCE}:\n{self.build_log}")
+                    f"nvcc failed ({proc.returncode}) on {self.source}:\n{self.build_log}")
             os.replace(tmp, path)
         lib = ctypes.CDLL(str(path))
-        fn = lib.flash_read_fwd
-        fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6
-                       + [ctypes.c_longlong] * 7 + [ctypes.c_float, ctypes.c_void_p])
+        fn = getattr(lib, self.name)
+        fn.argtypes = self.argtypes
         fn.restype = ctypes.c_int
-        for const in (lib.flash_read_fwd_tile, lib.flash_read_fwd_smem_bytes):
+        tile, smem = getattr(lib, f"{self.name}_tile"), getattr(lib, f"{self.name}_smem_bytes")
+        for const in (tile, smem):
             const.argtypes = []
             const.restype = ctypes.c_int
-        if lib.flash_read_fwd_tile() != KERNEL_TILE:
-            raise RuntimeError("kernel tile size disagrees with KERNEL_TILE")
+        if tile() != KERNEL_TILE:
+            raise RuntimeError(f"{self.name}: kernel tile size disagrees with KERNEL_TILE")
         self.lib, self.path = lib, path
         return lib
 
+    def smem_bytes(self) -> int:
+        return getattr(self.load(), f"{self.name}_smem_bytes")()
 
-LIBRARY = _Library()
+
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+LIBRARY = _Library("flash_read_fwd", [_I] + [_P] * 9 + [_I] * 6 + [_L] * 7
+                   + [ctypes.c_float, _P])
+BWD_LIBRARY = _Library("flash_read_bwd", [_I] + [_P] * 12 + [_I] * 6 + [_L] * 6
+                       + [ctypes.c_float, _P])
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
-def _check_cuda_inputs(m_key, m_val, q_key, slot_valid, order, counts, z):
+def _check_cuda_inputs(m_key, m_val, q_key, slot_valid, order, counts):
     dev = q_key.device
     if dev.type != "cuda":
-        raise ValueError(f"the flash read kernel takes CUDA tensors, not {dev}")
+        raise ValueError(f"the flash read kernels take CUDA tensors, not {dev}")
     named = (("m_key", m_key), ("m_val", m_val), ("slot_valid", slot_valid),
-             ("order", order), ("counts", counts), ("z", z))
+             ("order", order), ("counts", counts))
     for name, t in named:
         if t.device != dev:
             raise ValueError(f"{name} is on {t.device}, q_key on {dev}")
@@ -221,11 +320,8 @@ def _check_cuda_inputs(m_key, m_val, q_key, slot_valid, order, counts, z):
     if slot_valid.shape != (N, S):
         raise ValueError(f"slot_valid must be {(N, S)}, got {tuple(slot_valid.shape)}")
     nt = -(-S * h * w // KERNEL_TILE)
-    for name, t, shape in (("order", order, (N, nt)), ("counts", counts, (N,)),
-                           ("z", z, (N,))):
-        if t.dtype != torch.int32 or tuple(t.shape) != shape or not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous int32 {shape}, got "
-                             f"{t.dtype} {tuple(t.shape)}")
+    _check_meta("order", order, torch.int32, (N, nt))
+    _check_meta("counts", counts, torch.int32, (N,))
     for name, t in (("m_key", m_key), ("m_val", m_val)):
         st = t.stride()
         # channels contiguous, (h, w) one linear position axis, 16-byte
@@ -235,8 +331,52 @@ def _check_cuda_inputs(m_key, m_val, q_key, slot_valid, order, counts, z):
                              f"(h, w) position axis, got strides {st}")
         if any(s % 8 for s in st[:4]) or t.data_ptr() % 16:
             raise ValueError(f"{name} strides {st} / pointer not 16-byte aligned")
-    if not q_key.is_contiguous() or q_key.data_ptr() % 16:
-        raise ValueError("q_key must be contiguous and 16-byte aligned")
+    _check_meta("q_key", q_key, q_key.dtype, (N, h, w, Ck), align=True)
+
+
+def _check_meta(name, t, dtype, shape, align=False):
+    if (t.dtype != dtype or tuple(t.shape) != tuple(shape) or not t.is_contiguous()
+            or (align and t.data_ptr() % 16)):
+        raise ValueError(f"{name} must be contiguous{' 16-byte aligned' if align else ''} "
+                         f"{dtype} {tuple(shape)}, got {t.dtype} {tuple(t.shape)}")
+
+
+class FlashMemoryRead(torch.autograd.Function):
+    """The block-sparse read with its recompute-based flash backward
+    (``jax.custom_vjp`` of flash_attention.py:375-407). Forward and backward
+    each run one kernel call on the card, their plain versions on the CPU;
+    ``slot_valid`` and ``bboxes`` get no gradient."""
+
+    @staticmethod
+    def forward(ctx, m_key, m_val, q_key, slot_valid, bboxes):
+        h, w = m_key.shape[2:4]
+        tile_active, z, order, counts = tile_metadata(slot_valid, bboxes, h, w)
+        if q_key.device.type == "cpu":
+            out, lse = flash_memory_read_reference(m_key, m_val, q_key, slot_valid,
+                                                   order, counts, z)
+        else:
+            out, lse = flash_read_fwd(m_key, m_val, q_key, slot_valid, order, counts, z)
+        ctx.save_for_backward(m_key, m_val, q_key, slot_valid, out, lse, tile_active,
+                              order, counts)
+        ctx.mark_non_differentiable(lse)
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, d_out, _d_lse):
+        m_key, m_val, q_key, slot_valid, out, lse, tile_active, order, counts = (
+            ctx.saved_tensors)
+        N = q_key.shape[0]
+        d_out = d_out.to(q_key.dtype).contiguous()
+        # D = rowsum(dO * O), outside the kernel as in flash_attention.py:309-311
+        delta = (d_out.float() * out.float()).sum(dim=-1).reshape(N, -1)
+        args = (m_key, m_val, q_key, slot_valid, order, counts, d_out, lse, delta)
+        if q_key.device.type == "cpu":
+            dq, dk_t, dv_t = flash_read_bwd_reference(*args)
+        else:
+            dq, dk_t, dv_t = flash_read_bwd(*args)
+        dmk, dmv = merge_skipped_tiles(dk_t, dv_t, tile_active, slot_valid, q_key, d_out,
+                                       lse, delta, m_key.shape)
+        return (dmk.to(m_key.dtype), dmv.to(m_val.dtype), dq.to(q_key.dtype), None, None)
 
 
 def flash_memory_read(
@@ -251,21 +391,18 @@ def flash_memory_read(
     ``bboxes`` are the per-slot regional boxes in padded full-resolution
     coordinates (x_min, x_max, y_min, y_max), as the bank stores them; memory
     positions outside a slot's box must hold zero keys and values. On the
-    CPU this runs the plain version; on CUDA it launches the kernel.
+    CPU this runs the plain versions; on CUDA it launches the kernels.
+    Differentiable in ``m_key``, ``m_val`` and ``q_key`` (``lse`` is not).
     """
-    h, w = m_key.shape[2:4]
-    _, z, order, counts = tile_metadata(slot_valid, bboxes, h, w)
-    if q_key.device.type == "cpu":
-        return flash_memory_read_reference(m_key, m_val, q_key, slot_valid,
-                                           order, counts, z)
-    return flash_read_fwd(m_key, m_val, q_key, slot_valid, order, counts, z)
+    return FlashMemoryRead.apply(m_key, m_val, q_key, slot_valid, bboxes)
 
 
 def flash_read_fwd(m_key, m_val, q_key, slot_valid, order, counts, z):
-    """Launch the CUDA kernel on tile metadata from :func:`tile_metadata`
+    """Launch the forward kernel on tile metadata from :func:`tile_metadata`
     (at ``KERNEL_TILE``) -> (out (N, h, w, Cv), lse (N, h*w) f32). Takes CUDA
     tensors only; adds one to ``flash_memory_read.launches``."""
-    _check_cuda_inputs(m_key, m_val, q_key, slot_valid, order, counts, z)
+    _check_cuda_inputs(m_key, m_val, q_key, slot_valid, order, counts)
+    _check_meta("z", z, torch.int32, (m_key.shape[0],))
     lib = LIBRARY.load()
     N, S, h, w, Ck = m_key.shape
     Cv = m_val.shape[-1]
@@ -288,4 +425,40 @@ def flash_read_fwd(m_key, m_val, q_key, slot_valid, order, counts, z):
     return out, lse
 
 
+def flash_read_bwd(m_key, m_val, q_key, slot_valid, order, counts, d_out, lse, delta):
+    """Launch the backward kernels (dK/dV of the listed active tiles, then
+    dQ) -> (dq (N, h, w, Ck), dk_t (N, nt*64, Ck), dv_t (N, nt*64, Cv)) in
+    the inputs' dtype, zero outside the listed tiles, like
+    :func:`flash_read_bwd_reference`. Takes CUDA tensors only; adds one to
+    ``flash_read_bwd.launches`` per call."""
+    _check_cuda_inputs(m_key, m_val, q_key, slot_valid, order, counts)
+    N, S, h, w, Ck = m_key.shape
+    Cv = m_val.shape[-1]
+    Q = h * w
+    if Cv not in _BWD_CV:
+        raise ValueError(f"the backward kernel takes Cv in {_BWD_CV}, got {Cv}")
+    _check_meta("d_out", d_out, q_key.dtype, (N, h, w, Cv), align=True)
+    _check_meta("lse", lse, torch.float32, (N, Q))
+    _check_meta("delta", delta, torch.float32, (N, Q))
+    lib = BWD_LIBRARY.load()
+    nt = order.shape[1]
+    dq = torch.empty((N, h, w, Ck), dtype=q_key.dtype, device=q_key.device)
+    dk_t = torch.zeros((N, nt * KERNEL_TILE, Ck), dtype=q_key.dtype, device=q_key.device)
+    dv_t = torch.zeros((N, nt * KERNEL_TILE, Cv), dtype=q_key.dtype, device=q_key.device)
+    valid_u8 = slot_valid.to(torch.uint8).contiguous()
+    ks, vs = m_key.stride(), m_val.stride()
+    err = lib.flash_read_bwd(
+        _DTYPE_CODE[q_key.dtype], q_key.data_ptr(), m_key.data_ptr(), m_val.data_ptr(),
+        valid_u8.data_ptr(), order.data_ptr(), counts.data_ptr(), d_out.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk_t.data_ptr(), dv_t.data_ptr(),
+        N, Q, S, Q, Cv, nt, ks[0], ks[1], ks[3], vs[0], vs[1], vs[3],
+        1.0 / math.sqrt(Ck), torch.cuda.current_stream(q_key.device).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"flash_read_bwd launch failed: CUDA error {err}")
+    flash_read_bwd.launches += 1
+    return dq, dk_t, dv_t
+
+
 flash_memory_read.launches = 0
+flash_read_bwd.launches = 0

@@ -38,7 +38,10 @@ def test_source_imports_no_jax_and_no_rmnet_tpu(path):
 
 def test_sources_found():
     names = {p.name for p in SOURCES}
-    assert {"engine.py", "flash_attention.py", "rmnet.py", "chip_smoke.py"} <= names
+    assert {"engine.py", "train.py", "flash_attention.py", "losses.py", "rmnet.py",
+            "chip_smoke.py"} <= names
+    kernels = {p.name for p in (ROOT / "rmnet_tpu_torch" / "csrc").glob("*.cu")}
+    assert {"flash_read_fwd.cu", "flash_read_bwd.cu"} <= kernels
 
 
 def test_import_with_jax_blocked():

@@ -5,17 +5,19 @@ installed; tests/conftest.py imports JAX, so on the card run it as
 
     python -m pytest --noconftest -p no:cacheprovider -m gpu tests/test_torch_kernels_gpu.py
 
-Each test skips without a CUDA device. The cases and the comparison are
-chip_smoke.py's (``KERNEL_CASES``, ``compare_read``): f32 at 2e-4 (the read's
-tolerance in tests/test_flash_attention.py), bf16 within 1e-2 of the plain
-output's largest magnitude, ``lse`` at 2e-4 where finite and +inf on the
-same rows, and one counted launch per call.
+Each test skips without a CUDA device. The cases and the comparisons are
+chip_smoke.py's. Forward (``KERNEL_CASES``, ``compare_read``): f32 at 2e-4
+(the read's tolerance in tests/test_flash_attention.py), bf16 within 1e-2 of
+the plain output's largest magnitude, ``lse`` at 2e-4 where finite and +inf
+on the same rows. Backward (``BWD_CASES``, ``compare_bwd``): dQ, dK and dV
+each within 1e-4 (f32) or 1e-2 (bf16) of the plain gradient's largest
+magnitude. Both count one launch per call.
 """
 
 import pytest
 import torch
 
-from chip_smoke import KERNEL_CASES, bank_case, compare_read
+from chip_smoke import BWD_CASES, KERNEL_CASES, bank_case, bwd_case, compare_bwd, compare_read
 from rmnet_tpu_torch.ops.flash_attention import flash_memory_read
 
 
@@ -30,6 +32,13 @@ def _cuda():
 def test_flash_read_kernel_matches_plain_version(name):
     _cuda()
     compare_read(name, bank_case(*KERNEL_CASES[name]))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", list(BWD_CASES))
+def test_flash_read_bwd_kernel_matches_plain_version(name):
+    _cuda()
+    compare_bwd(name, bwd_case(name))
 
 
 @pytest.mark.gpu
