@@ -7,13 +7,15 @@ Phases, in order (each raises on failure; nothing is caught):
   device  require CUDA, print the card's name and power limit;
   build   build rmnet_tpu_torch/csrc/flash_read_{fwd,bwd}.cu with nvcc for
           sm_90a (one nvcc each, started together); registers, spills and
-          shared memory of each;
+          shared memory of each; the tensor-core (HMMA) instructions of each
+          backward kernel in the built SASS (cuobjdump; fails on 0);
   kernel  hold the flash-read kernel against its plain PyTorch version at the
           main-path shapes (f32 at 2e-4; bf16 within 1e-2 of the plain
           output's largest magnitude; lse at 2e-4);
   kernel_bwd  hold the backward kernel against its plain version on the same
           cases plus the training read (dQ, dK, dV each within 1e-4 of the
-          plain gradient's largest magnitude in f32, 1e-2 in bf16);
+          plain gradient's largest magnitude in f32, 1e-2 in bf16); two calls
+          on the f32 training read give bit-identical gradients;
   engine  480x854, 2 objects, memorize_every=5, T=48, bf16, flash read, auto
           capacity, random weights: labels, launch count (T-1), and one f32
           step through the kernel read against the dense read (the read's
@@ -33,7 +35,9 @@ Phases, in order (each raises on failure; nothing is caught):
           after the steps, reported only, beside the flash step run twice;
   train_times  ms per step, clips/s, peak memory; the backward kernel, its
           plain version and the backward of scaled_dot_product_attention at
-          the step's last read; the backward's bound; one step profiled
+          the step's last read; the backward's bound and the work its kernels
+          execute by the design's count (chip_bwd_probe.py counts it on the
+          card); one step profiled
           (build/chip_smoke/profile_train.txt).
 
 Prints the card's name and power limit, the kernel table as one JSON line
@@ -46,6 +50,8 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import os
+import re
 import statistics
 import subprocess
 import sys
@@ -60,7 +66,9 @@ OUT_DIR = ROOT / "build" / "chip_smoke"
 
 # NVIDIA H100 SXM data sheet, dense rates at the full 700 W power limit
 H100_BF16_FLOPS = 989e12   # tensor cores
-H100_F32_FLOPS = 67e12     # float32 outside the tensor cores
+# float32 products at float32 accuracy: 3xTF32 on the tensor cores, three
+# TF32 passes (495 TFLOP/s) per product, beats the CUDA cores' 67 TFLOP/s
+H100_F32_FLOPS = 495e12 / 3
 H100_BYTES = 3.35e12       # HBM3 bytes per second
 
 # the main path (bench.py's protocol)
@@ -107,7 +115,36 @@ def phase_build() -> dict:
             if any(w in line for w in ("Compiling entry", "registers", "spill", "smem",
                                        "error", "warning")):
                 log(f"  ptxas: {line.strip()}")
-    return {lib.name: lib.build_seconds for lib in libs}
+    hmma = sass_mma_counts(BWD_LIBRARY)
+    for kernel, count in hmma.items():
+        log(f"build: {kernel}: {count} HMMA instructions in the SASS")
+    if len(hmma) != 6 or not all(hmma.values()):
+        raise AssertionError(f"backward kernels without tensor-core instructions: {hmma}")
+    return dict(seconds={lib.name: lib.build_seconds for lib in libs}, bwd_hmma=hmma)
+
+
+def _bwd_kernel_name(mangled: str) -> str:
+    """'ds<float>' for the mangled name of flash_read_bwd_ds_kernel<float>."""
+    m = re.search(r"flash_read_bwd_([a-z]+)_kernelI(f|13__nv_bfloat16)E", mangled)
+    if m is None:
+        raise AssertionError(f"unexpected kernel in the backward library: {mangled}")
+    return f"{m.group(1)}<{'float' if m.group(2) == 'f' else 'bf16'}>"
+
+
+def sass_mma_counts(lib) -> dict:
+    """HMMA (tensor-core) instructions per kernel in the SASS of ``lib``'s
+    build, read with cuobjdump."""
+    cuobjdump = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "cuobjdump"
+    sass = subprocess.run([str(cuobjdump), "-sass", str(lib.path)], capture_output=True,
+                          text=True, check=True).stdout
+    counts, kernel = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            kernel = _bwd_kernel_name(line.split("Function :")[1].strip())
+            counts[kernel] = 0
+        elif kernel is not None and "HMMA" in line:
+            counts[kernel] += 1
+    return counts
 
 
 # ----------------------------------------------------------------- kernel
@@ -217,7 +254,8 @@ def phase_kernel() -> None:
 # ------------------------------------------------------------- kernel_bwd
 # Backward kernel against plain version, for each of dQ, dK, dV:
 # max|g - plain| <= tol * max|plain|. f32: 1e-4 (sums of up to Q*M products
-# taken in another order). bf16: both compute in f32 from the same bf16
+# taken in another order; single-pass TF32 lands at 6e-4 or more, which
+# chip_bwd_probe.py shows). bf16: both compute in f32 from the same bf16
 # inputs and the kernel rounds once, so at most half an ulp, max|plain|/256.
 BWD_F32_REL_TOL, BWD_BF16_REL_TOL = 1e-4, 1e-2
 
@@ -286,9 +324,26 @@ def compare_bwd(name, args) -> float:
     return max(errs)
 
 
+def check_bwd_deterministic(name) -> None:
+    """The backward kernel twice on BWD_CASES[name]: bit-identical dQ, dK and
+    dV, or raises."""
+    from rmnet_tpu_torch.ops.flash_attention import flash_read_bwd
+
+    args = bwd_case(name)
+    first = flash_read_bwd(*args)
+    second = flash_read_bwd(*args)
+    torch.cuda.synchronize()
+    same = {g: torch.equal(a, b) for g, a, b in zip(("dQ", "dK", "dV"), first, second)}
+    log(f"kernel_bwd {name} twice: bit-identical {same} "
+        f"{'ok' if all(same.values()) else 'FAIL'}")
+    if not all(same.values()):
+        raise AssertionError(f"backward kernel {name} is not deterministic: {same}")
+
+
 def phase_kernel_bwd() -> None:
     for name in BWD_CASES:
         compare_bwd(name, bwd_case(name))
+    check_bwd_deterministic("train_S3_f32")
 
 
 # ----------------------------------------------------------------- engine
@@ -499,6 +554,40 @@ def read_bwd_bound(c) -> tuple:
     flops = 2.0 * h * w * inbox * (3 * Ck + 2 * Cv)
     nbytes = (2 * inbox * (Ck + Cv) + N * h * w * (2 * Ck + Cv)) * es + 2 * N * h * w * 4
     return (*_bound(flops, nbytes, q.dtype), inbox, flops)
+
+
+def read_bwd_executed_flops(args) -> float:
+    """The operations the backward kernels execute on ``args`` (the
+    backward's arguments) by the design's count, not measured:
+    2*64*64*(3*Ck + 2*Cv) per (64-row query block, listed active tile), s
+    and dP once each. chip_bwd_probe.py counts the mma instructions on the
+    card and holds them to this."""
+    mk, mv, q, counts = args[0], args[1], args[2], args[5]
+    Ck, Cv = mk.shape[-1], mv.shape[-1]
+    query_blocks = -(-q.shape[1] * q.shape[2] // 64)
+    return float(counts.sum()) * query_blocks * 2.0 * 64 * 64 * (3 * Ck + 2 * Cv)
+
+
+def bwd_kernel_ms(args, calls=5) -> dict:
+    """Device ms per call of each of the backward's kernels on ``args``
+    (torch.profiler over ``calls`` calls, L2 warm)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from rmnet_tpu_torch.ops.flash_attention import flash_read_bwd
+
+    flash_read_bwd(*args)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            flash_read_bwd(*args)
+        torch.cuda.synchronize()
+    times = {}
+    for e in prof.key_averages():
+        m = re.search(r"flash_read_bwd_([a-z]+)_kernel", e.key)
+        if e.device_type == DeviceType.CUDA and m:
+            times[m.group(1)] = times.get(m.group(1), 0.0) + e.self_device_time_total / 1e3 / calls
+    return times
 
 
 def sdpa_read(c):
@@ -789,15 +878,20 @@ def phase_train_times(smi, train) -> tuple:
     plain_ms = _time_ms(lambda: flash_read_bwd_reference(*args), 5, flush)
     library_ms = _time_ms(sdpa_read_bwd(c, args[6]), 20, flush)
     bound_ms, bound_by, inbox, flops = read_bwd_bound(c)
+    executed = read_bwd_executed_flops(args)
     N, S, h, w = c["m_key"].shape[:4]
     order, counts = args[4], args[5]
     log(f"time flash_read_bwd: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa backward "
         f"over the dense bank {library_ms:.4f} ms, bound {bound_ms:.4f} ms by {bound_by} "
         f"({flops / 1e9:.2f} GFLOP over {inbox} in-box valid positions of {N * S * h * w}; "
         f"{int(counts.sum())} active tiles of {order.numel()}), "
-        f"{flops / ms / 1e9:.2f} TFLOP/s, launches per step "
+        f"{flops / ms / 1e9:.2f} TFLOP/s useful, executed by the design's count "
+        f"{executed / 1e9:.2f} GFLOP, launches per step "
         f"{train['launches']['bwd'] / (1 + TRAIN_STEPS):.0f}; N={N} S={S} h={h} w={w} "
         f"{c['q_key'].dtype} [{smi}]")
+    by_kernel = bwd_kernel_ms(args)
+    log("time flash_read_bwd by kernel (profiler, L2 warm): " + ", ".join(
+        f"{k} {v:.4f} ms" for k, v in by_kernel.items()) + f" [{smi}]")
     trainer, batch = train["trainer"], train["batch"]
     prof = profile_device(smi, lambda: trainer.train_step(batch), 1, "step", step_ms,
                           "profile_train.txt")
@@ -810,7 +904,8 @@ def phase_train_times(smi, train) -> tuple:
     )
     return row, dict(step_ms=step_ms, clips_per_s=B / step_ms * 1e3,
                      walls_s=train["walls_s"], losses=train["losses"],
-                     peak_gb=train["peak_gb"], grads=train["grads"], profile=prof)
+                     peak_gb=train["peak_gb"], grads=train["grads"], profile=prof,
+                     bwd_kernel_ms=by_kernel, bwd_executed_gflop_by_design=executed / 1e9)
 
 
 def main() -> int:
@@ -818,7 +913,7 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
     from rmnet_tpu_torch.models.weights import build_models
 
-    report = {"card": smi, "build_s": phase_build()}
+    report = {"card": smi, "build": phase_build()}
     phase_kernel()
     phase_kernel_bwd()
     rmnet, tfn = build_models(seed=0)

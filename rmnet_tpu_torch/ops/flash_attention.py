@@ -22,6 +22,9 @@ build/kernels/ and bound with ctypes:
 * rmnet_tpu_torch/csrc/flash_read_bwd.cu replaces ``_bwd_kernel``
   (:239, pallas_call at :335): dQ, and dK/dV of the active tiles, from the
   forward's lse, 2*N*Q*M_active*(3*Ck+2*Cv) FLOP, also bound by operations.
+  Three kernels on the tensor cores (TF32 mma.sync, 3xTF32 for f32 inputs;
+  csrc/mma_tf32.cuh): s and dP once per (query block, tile) into a float32
+  P / dS scratch, then dK/dV per tile and dQ per query block from it.
   As in the JAX package, D = rowsum(dO * O) and the skipped tiles' exact
   rank-1 dK/dV (every valid position there has k = v = 0 and probability
   exp(-lse)) are computed in torch around the kernel.
@@ -236,23 +239,30 @@ def merge_skipped_tiles(dk_t, dv_t, tile_active, slot_valid, q_key, d_out, lse,
 class _Library:
     """One kernel's shared library, built from the checkout at first use."""
 
-    def __init__(self, name: str, argtypes):
+    def __init__(self, name: str, argtypes, csrc: Path = _CSRC):
         self.name = name
-        self.source = _CSRC / f"{name}.cu"
+        self.source = csrc / f"{name}.cu"
         self.argtypes = argtypes
         self.lib = None
         self.path: Optional[Path] = None
         self.build_seconds: Optional[float] = None
         self.build_log = ""
 
+    def tag(self) -> str:
+        """Hash of what the build reads: the source, every header beside it
+        (``csrc/*.cuh``) and the nvcc flags."""
+        h = hashlib.sha256(self.source.read_bytes())
+        for header in sorted(self.source.parent.glob("*.cuh")):
+            h.update(header.name.encode() + header.read_bytes())
+        h.update(" ".join(_NVCC_FLAGS).encode())
+        return h.hexdigest()[:12]
+
     def load(self, force_build: bool = False):
-        """Load the library, building it first if this source has no build
-        yet (or always, with ``force_build``)."""
+        """Load the library, building it first if this source and its
+        headers have no build yet (or always, with ``force_build``)."""
         if self.lib is not None and not force_build:
             return self.lib
-        src = self.source.read_bytes()
-        tag = hashlib.sha256(src + " ".join(_NVCC_FLAGS).encode()).hexdigest()[:12]
-        path = _BUILD_DIR / f"lib{self.name}_{tag}.so"
+        path = _BUILD_DIR / f"lib{self.name}_{self.tag()}.so"
         if force_build or not path.exists():
             cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
             nvcc = str(Path(cuda_home) / "bin" / "nvcc")
@@ -289,7 +299,7 @@ class _Library:
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 LIBRARY = _Library("flash_read_fwd", [_I] + [_P] * 9 + [_I] * 6 + [_L] * 7
                    + [ctypes.c_float, _P])
-BWD_LIBRARY = _Library("flash_read_bwd", [_I] + [_P] * 12 + [_I] * 6 + [_L] * 6
+BWD_LIBRARY = _Library("flash_read_bwd", [_I] + [_P] * 14 + [_I] * 6 + [_L] * 6
                        + [ctypes.c_float, _P])
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -426,11 +436,12 @@ def flash_read_fwd(m_key, m_val, q_key, slot_valid, order, counts, z):
 
 
 def flash_read_bwd(m_key, m_val, q_key, slot_valid, order, counts, d_out, lse, delta):
-    """Launch the backward kernels (dK/dV of the listed active tiles, then
-    dQ) -> (dq (N, h, w, Ck), dk_t (N, nt*64, Ck), dv_t (N, nt*64, Cv)) in
-    the inputs' dtype, zero outside the listed tiles, like
+    """Launch the backward kernels (P and dS of the listed active tiles, then
+    their dK/dV, then dQ) -> (dq (N, h, w, Ck), dk_t (N, nt*64, Ck), dv_t
+    (N, nt*64, Cv)) in the inputs' dtype, zero outside the listed tiles, like
     :func:`flash_read_bwd_reference`. Takes CUDA tensors only; adds one to
-    ``flash_read_bwd.launches`` per call."""
+    ``flash_read_bwd.launches`` per call. Allocates two float32 scratch
+    tensors of (N, nt, Q rounded up to 64, 64) for P and dS."""
     _check_cuda_inputs(m_key, m_val, q_key, slot_valid, order, counts)
     N, S, h, w, Ck = m_key.shape
     Cv = m_val.shape[-1]
@@ -445,12 +456,16 @@ def flash_read_bwd(m_key, m_val, q_key, slot_valid, order, counts, d_out, lse, d
     dq = torch.empty((N, h, w, Ck), dtype=q_key.dtype, device=q_key.device)
     dk_t = torch.zeros((N, nt * KERNEL_TILE, Ck), dtype=q_key.dtype, device=q_key.device)
     dv_t = torch.zeros((N, nt * KERNEL_TILE, Cv), dtype=q_key.dtype, device=q_key.device)
+    scratch = (N, nt, -(-Q // KERNEL_TILE) * KERNEL_TILE, KERNEL_TILE)
+    p_buf = torch.empty(scratch, dtype=torch.float32, device=q_key.device)
+    ds_buf = torch.empty(scratch, dtype=torch.float32, device=q_key.device)
     valid_u8 = slot_valid.to(torch.uint8).contiguous()
     ks, vs = m_key.stride(), m_val.stride()
     err = lib.flash_read_bwd(
         _DTYPE_CODE[q_key.dtype], q_key.data_ptr(), m_key.data_ptr(), m_val.data_ptr(),
         valid_u8.data_ptr(), order.data_ptr(), counts.data_ptr(), d_out.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk_t.data_ptr(), dv_t.data_ptr(),
+        p_buf.data_ptr(), ds_buf.data_ptr(),
         N, Q, S, Q, Cv, nt, ks[0], ks[1], ks[3], vs[0], vs[1], vs[3],
         1.0 / math.sqrt(Ck), torch.cuda.current_stream(q_key.device).cuda_stream,
     )

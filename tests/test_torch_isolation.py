@@ -1,7 +1,7 @@
 """The port stands alone: no JAX and nothing of rmnet_tpu in rmnet_tpu_torch/,
-chip_smoke.py or the card's test file (which runs where JAX is not
-installed), checked on the source (ast) and on an import with JAX made
-unimportable."""
+chip_smoke.py, chip_bwd_probe.py or the card's test file (which runs where
+JAX is not installed), checked on the source (ast) and on an import with JAX
+made unimportable."""
 
 import ast
 import subprocess
@@ -12,7 +12,8 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 SOURCES = sorted((ROOT / "rmnet_tpu_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py", ROOT / "tests" / "test_torch_kernels_gpu.py"]
+    ROOT / "chip_smoke.py", ROOT / "chip_bwd_probe.py",
+    ROOT / "tests" / "test_torch_kernels_gpu.py"]
 
 
 def _forbidden(module: str) -> bool:

@@ -11,13 +11,15 @@ chip_smoke.py's. Forward (``KERNEL_CASES``, ``compare_read``): f32 at 2e-4
 the plain output's largest magnitude, ``lse`` at 2e-4 where finite and +inf
 on the same rows. Backward (``BWD_CASES``, ``compare_bwd``): dQ, dK and dV
 each within 1e-4 (f32) or 1e-2 (bf16) of the plain gradient's largest
-magnitude. Both count one launch per call.
+magnitude. Both count one launch per call. Two backward calls on the f32
+training read give bit-identical gradients (``check_bwd_deterministic``).
 """
 
 import pytest
 import torch
 
-from chip_smoke import BWD_CASES, KERNEL_CASES, bank_case, bwd_case, compare_bwd, compare_read
+from chip_smoke import (BWD_CASES, KERNEL_CASES, bank_case, bwd_case, check_bwd_deterministic,
+                        compare_bwd, compare_read)
 from rmnet_tpu_torch.ops.flash_attention import flash_memory_read
 
 
@@ -39,6 +41,12 @@ def test_flash_read_kernel_matches_plain_version(name):
 def test_flash_read_bwd_kernel_matches_plain_version(name):
     _cuda()
     compare_bwd(name, bwd_case(name))
+
+
+@pytest.mark.gpu
+def test_flash_read_bwd_kernel_is_deterministic():
+    _cuda()
+    check_bwd_deterministic("train_S3_f32")
 
 
 @pytest.mark.gpu
