@@ -8,10 +8,14 @@ Phases, in order (each raises on failure; nothing is caught):
   build   build rmnet_tpu_torch/csrc/flash_read_{fwd,bwd}.cu with nvcc for
           sm_90a (one nvcc each, started together); registers, spills and
           shared memory of each; the tensor-core (HMMA) instructions of each
-          backward kernel in the built SASS (cuobjdump; fails on 0);
-  kernel  hold the flash-read kernel against its plain PyTorch version at the
-          main-path shapes (f32 at 2e-4; bf16 within 1e-2 of the plain
-          output's largest magnitude; lse at 2e-4);
+          kernel in the built SASS (cuobjdump; fails on 0 in a forward main
+          kernel or a backward kernel);
+  kernel  hold the flash-read forward (main and merge kernels) against its
+          plain PyTorch version and against the plain split and merge at the
+          wrapper's split count, at the main-path shapes and the training
+          read (f32 at 2e-4; bf16 within 1e-2 of the plain output's largest
+          magnitude; lse at 2e-4); two calls at S33_bf16 and at the f32
+          training read give bit-identical out and lse;
   kernel_bwd  hold the backward kernel against its plain version on the same
           cases plus the training read (dQ, dK, dV each within 1e-4 of the
           plain gradient's largest magnitude in f32, 1e-2 in bf16); two calls
@@ -22,7 +26,9 @@ Phases, in order (each raises on failure; nothing is caught):
           output at 2e-4, the probabilities at 1e-3);
   times   engine per-frame ms / FPS; the kernel, its plain version and
           scaled_dot_product_attention over the dense bank, all on the
-          inputs of the engine's last flash read; the kernel's bound;
+          inputs of the engine's last flash read; the kernel's bound; its
+          ms by CUDA kernel (main, merge); the work its kernels execute by
+          the design's count beside the useful work (fails past 1.3x);
   profile device time per frame by kernel kind (torch.profiler), the
           device's busy share; the kernel table in build/chip_smoke/profile.txt;
   train   the reference training shape at full width (B=4, T=3, 3 objects,
@@ -33,9 +39,11 @@ Phases, in order (each raises on failure; nothing is caught):
           finite losses, parameters that change, T-1 = 2 forward and 2
           backward kernel launches per step; the gradient comparison again
           after the steps, reported only, beside the flash step run twice;
-  train_times  ms per step, clips/s, peak memory; the backward kernel, its
-          plain version and the backward of scaled_dot_product_attention at
-          the step's last read; the backward's bound and the work its kernels
+  train_times  ms per step, clips/s, peak memory; the forward kernel, its
+          plain version and scaled_dot_product_attention at the step's last
+          read (f32), with its bound and executed work; the backward kernel,
+          its plain version and the backward of scaled_dot_product_attention
+          at the same read; the backward's bound and the work its kernels
           execute by the design's count (chip_bwd_probe.py counts it on the
           card); one step profiled
           (build/chip_smoke/profile_train.txt).
@@ -97,6 +105,10 @@ def phase_device() -> str:
     return smi
 
 
+# the forward's main kernels, one per input type; the merge kernel is a template
+FWD_MAIN_KERNELS = ("bf16", "f32")
+
+
 def phase_build() -> dict:
     """Build both kernel libraries, one nvcc each, started together."""
     from concurrent.futures import ThreadPoolExecutor
@@ -115,19 +127,29 @@ def phase_build() -> dict:
             if any(w in line for w in ("Compiling entry", "registers", "spill", "smem",
                                        "error", "warning")):
                 log(f"  ptxas: {line.strip()}")
-    hmma = sass_mma_counts(BWD_LIBRARY)
-    for kernel, count in hmma.items():
-        log(f"build: {kernel}: {count} HMMA instructions in the SASS")
-    if len(hmma) != 6 or not all(hmma.values()):
-        raise AssertionError(f"backward kernels without tensor-core instructions: {hmma}")
-    return dict(seconds={lib.name: lib.build_seconds for lib in libs}, bwd_hmma=hmma)
+    hmma = {lib.name: sass_mma_counts(lib) for lib in libs}
+    for name, counts in hmma.items():
+        for kernel, count in counts.items():
+            log(f"build: {name} {kernel}: {count} HMMA instructions in the SASS")
+    # every kernel but the forward's merge (a weighted sum of the splits) is a product
+    fwd, bwd = hmma[LIBRARY.name], hmma[BWD_LIBRARY.name]
+    products = [fwd.get(k, 0) for k in FWD_MAIN_KERNELS] + list(bwd.values())
+    if len(bwd) != 6 or not all(products):
+        raise AssertionError(f"kernels without tensor-core instructions: {hmma}")
+    return dict(seconds={lib.name: lib.build_seconds for lib in libs}, fwd_hmma=fwd,
+                bwd_hmma=bwd)
 
 
-def _bwd_kernel_name(mangled: str) -> str:
-    """'ds<float>' for the mangled name of flash_read_bwd_ds_kernel<float>."""
-    m = re.search(r"flash_read_bwd_([a-z]+)_kernelI(f|13__nv_bfloat16)E", mangled)
+def _kernel_name(mangled: str) -> str:
+    """The short name of a flash-read kernel from its mangled name: 'ds<float>'
+    for flash_read_bwd_ds_kernel<float>, 'bf16' for flash_read_fwd_bf16_kernel,
+    'merge<bf16>' for flash_read_fwd_merge_kernel<__nv_bfloat16>."""
+    m = re.search(r"flash_read_(?:fwd|bwd)_([a-z0-9]+)_kernel(?:I(f|13__nv_bfloat16)E)?",
+                  mangled)
     if m is None:
-        raise AssertionError(f"unexpected kernel in the backward library: {mangled}")
+        raise AssertionError(f"unexpected kernel in a flash-read library: {mangled}")
+    if m.group(2) is None:
+        return m.group(1)
     return f"{m.group(1)}<{'float' if m.group(2) == 'f' else 'bf16'}>"
 
 
@@ -140,7 +162,7 @@ def sass_mma_counts(lib) -> dict:
     counts, kernel = {}, None
     for line in sass.splitlines():
         if "Function :" in line:
-            kernel = _bwd_kernel_name(line.split("Function :")[1].strip())
+            kernel = _kernel_name(line.split("Function :")[1].strip())
             counts[kernel] = 0
         elif kernel is not None and "HMMA" in line:
             counts[kernel] += 1
@@ -149,9 +171,12 @@ def sass_mma_counts(lib) -> dict:
 
 # ----------------------------------------------------------------- kernel
 # Kernel against plain version: f32 out and lse at 2e-4 (the read's tolerance
-# in tests/test_flash_attention.py). In bf16 both compute in f32 from the same
-# bf16 inputs and round once, so only output rounding (at most an ulp,
-# max|plain|/128) separates them: max|out - plain| <= 1e-2 * max|plain|.
+# in tests/test_flash_attention.py). In bf16 the kernel rounds P to bf16 for
+# P V, as the TPU kernel does (p.astype(v.dtype)), where the plain version
+# keeps P in f32, and both round the output once: a relative error of at most
+# 2^-9 per weight, summed over positions of random sign, plus an output ulp
+# (max|plain|/128), so max|out - plain| <= 1e-2 * max|plain|. lse comes from
+# the unrounded f32 P in both, hence 2e-4 in either type.
 F32_TOL, BF16_REL_TOL = 2e-4, 1e-2
 
 
@@ -200,23 +225,64 @@ KERNEL_CASES = {
     "S12_f32_row_all_invalid": (2, 12, 30, 54, torch.float32, 4, (), 1),
     "unaligned_7x9_S5_f32": (3, 5, 7, 9, torch.float32, 5, (4,), None, 8),
     "unaligned_7x9_S5_bf16": (3, 5, 7, 9, torch.bfloat16, 6, (4,), None, 8),
+    # the training read: N = B*(K-1) = 12 rows, the 465x465 crop padded to
+    # 480x480 (30x30), capacity 2 plus the ephemeral slot, the slot being
+    # written this frame invalid
+    "train_S3_f32": (12, 3, 30, 30, torch.float32, 8, (1,)),
 }
 
 
-def plain_read(c):
-    from rmnet_tpu_torch.ops.flash_attention import (
-        flash_memory_read_reference, tile_metadata)
+def read_args(c) -> tuple:
+    """The forward kernel's arguments for read inputs ``c``: the inputs and
+    their tile metadata."""
+    from rmnet_tpu_torch.ops.flash_attention import tile_metadata
 
     h, w = c["q_key"].shape[1:3]
     _, z, order, counts = tile_metadata(c["slot_valid"], c["bboxes"], h, w)
-    return flash_memory_read_reference(c["m_key"], c["m_val"], c["q_key"],
-                                       c["slot_valid"], order, counts, z)
+    return (c["m_key"], c["m_val"], c["q_key"], c["slot_valid"], order, counts, z)
+
+
+def plain_read(c):
+    from rmnet_tpu_torch.ops.flash_attention import flash_memory_read_reference
+
+    return flash_memory_read_reference(*read_args(c))
+
+
+def plain_split_read(c):
+    """The plain versions of the forward's two kernels, split and merge, at
+    the split count the wrapper takes on this card -> (out, lse, splits)."""
+    from rmnet_tpu_torch.ops.flash_attention import (
+        flash_read_fwd_merge_reference, flash_read_fwd_partials_reference, fwd_splits_for)
+
+    mk, mv, q, valid, order, counts, z = read_args(c)
+    splits = fwd_splits_for(mk, q.device)
+    m, l, acc = flash_read_fwd_partials_reference(mk, mv, q, valid, order, counts, splits)
+    out, lse = flash_read_fwd_merge_reference(m, l, acc, z, q.dtype)
+    return out.reshape(q.shape[:3] + (-1,)), lse, splits
+
+
+def _read_agreement(out, lse, ref_out, ref_lse) -> tuple:
+    """(ok, max |out - ref|, max |ref|, max |lse - ref lse|, tolerance text) at
+    the read's tolerances; +inf lse rows must match."""
+    o, r = out.float(), ref_out.float()
+    err, peak = (o - r).abs().max().item(), r.abs().max().item()
+    fin = torch.isfinite(ref_lse)
+    same_inf = torch.equal(torch.isfinite(lse), fin) and bool((lse[~fin] == math.inf).all())
+    lse_err = (lse[fin] - ref_lse[fin]).abs().max().item() if fin.any() else 0.0
+    if out.dtype == torch.bfloat16:
+        tol = f"max|out-plain| <= {BF16_REL_TOL} * max|plain|"
+        ok = err <= BF16_REL_TOL * peak
+    else:
+        tol = f"allclose {F32_TOL}"
+        ok = torch.allclose(o, r, rtol=F32_TOL, atol=F32_TOL)
+    return ok and same_inf and lse_err <= F32_TOL, err, peak, lse_err, tol
 
 
 def compare_read(name, c) -> float:
-    """Kernel against its plain version on ``c`` (on the card); raises past
-    the tolerance or unless the wrapper counted exactly one launch.
-    Returns max |out - plain|."""
+    """Kernel against its plain version on ``c`` (on the card), and against
+    the plain split and merge at the wrapper's split count; raises past the
+    tolerance or unless the wrapper counted exactly one launch. Returns
+    max |out - plain|."""
     from rmnet_tpu_torch.ops.flash_attention import flash_memory_read
 
     before = flash_memory_read.launches
@@ -225,30 +291,42 @@ def compare_read(name, c) -> float:
     if flash_memory_read.launches != before + 1:
         raise AssertionError(f"{name}: the wrapper counted "
                              f"{flash_memory_read.launches - before} launches, want 1")
-    ref_out, ref_lse = plain_read(c)
-    o, r = out.float(), ref_out.float()
-    err, peak = (o - r).abs().max().item(), r.abs().max().item()
-    fin = torch.isfinite(ref_lse)
-    if not (torch.equal(torch.isfinite(lse), fin) and bool((lse[~fin] == math.inf).all())):
-        raise AssertionError(f"{name}: lse +inf rows differ from the plain version")
-    lse_err = (lse[fin] - ref_lse[fin]).abs().max().item() if fin.any() else 0.0
-    if out.dtype == torch.bfloat16:
-        tol = f"max|out-plain| <= {BF16_REL_TOL} * max|plain|"
-        ok = err <= BF16_REL_TOL * peak
-    else:
-        tol = f"allclose {F32_TOL}"
-        ok = torch.allclose(o, r, rtol=F32_TOL, atol=F32_TOL)
-    ok = ok and lse_err <= F32_TOL
+    ok, err, peak, lse_err, tol = _read_agreement(out, lse, *plain_read(c))
+    s_out, s_lse, splits = plain_split_read(c)
+    s_ok, s_err, _, s_lse_err, _ = _read_agreement(out, lse, s_out, s_lse)
     log(f"kernel {name}: max|out-plain|={err:.3e} max|plain|={peak:.3e} "
-        f"max|lse-plain|={lse_err:.3e} ({tol}, lse {F32_TOL}) {'ok' if ok else 'FAIL'}")
-    if not ok:
+        f"max|lse-plain|={lse_err:.3e}; against the plain split and merge ({splits} "
+        f"splits) {s_err:.3e}, lse {s_lse_err:.3e} ({tol}, lse {F32_TOL}) "
+        f"{'ok' if ok and s_ok else 'FAIL'}")
+    if not (ok and s_ok):
         raise AssertionError(f"kernel {name} disagrees with its plain version")
     return err
+
+
+def check_fwd_deterministic(name) -> None:
+    """The forward kernels twice on KERNEL_CASES[name]: bit-identical out and
+    lse, or raises."""
+    from rmnet_tpu_torch.ops.flash_attention import flash_read_fwd
+
+    args = read_args(bank_case(*KERNEL_CASES[name]))
+    first = flash_read_fwd(*args)
+    second = flash_read_fwd(*args)
+    torch.cuda.synchronize()
+    same = {k: torch.equal(a, b) for k, a, b in zip(("out", "lse"), first, second)}
+    log(f"kernel {name} twice: bit-identical {same} {'ok' if all(same.values()) else 'FAIL'}")
+    if not all(same.values()):
+        raise AssertionError(f"forward kernel {name} is not deterministic: {same}")
+
+
+# the forward's determinism cases: the engine's type and the training read's
+FWD_DETERMINISM_CASES = ("S33_bf16", "train_S3_f32")
 
 
 def phase_kernel() -> None:
     for name, args in KERNEL_CASES.items():
         compare_read(name, bank_case(*args))
+    for name in FWD_DETERMINISM_CASES:
+        check_fwd_deterministic(name)
 
 
 # ------------------------------------------------------------- kernel_bwd
@@ -259,12 +337,10 @@ def phase_kernel() -> None:
 # inputs and the kernel rounds once, so at most half an ulp, max|plain|/256.
 BWD_F32_REL_TOL, BWD_BF16_REL_TOL = 1e-4, 1e-2
 
-# the forward's cases plus the training read: N = B*(K-1) = 12 rows, the
-# 465x465 crop padded to 480x480 (30x30), capacity 2 plus the ephemeral
-# slot, the slot being written this frame invalid
+# the forward's cases (the f32 training read among them) plus the training
+# read in bf16
 BWD_CASES = {
     **KERNEL_CASES,
-    "train_S3_f32": (12, 3, 30, 30, torch.float32, 8, (1,)),
     "train_S3_bf16": (12, 3, 30, 30, torch.bfloat16, 9, (1,)),
 }
 
@@ -492,14 +568,22 @@ def phase_engine(models) -> dict:
 
 
 # ------------------------------------------------------------------ times
+# device cycles the card sleeps before each timed launch (about 5 ms on an
+# H100): the host enqueues the launch meanwhile, so the time between the
+# events is the device's alone and not the wrapper's host work
+_HOST_AHEAD_CYCLES = 10_000_000
+
+
 def _time_ms(fn, iters, flush):
     """Median device ms of ``fn`` over ``iters`` launches, each after an L2
-    flush (the engine's convs evict the bank between two reads)."""
+    flush (the engine's convs evict the bank between two reads) and a device
+    sleep that keeps the host ahead of the device."""
     for _ in range(2):
         fn()
     times = []
     for _ in range(iters):
         flush.zero_()
+        torch.cuda._sleep(_HOST_AHEAD_CYCLES)
         a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         a.record()
         fn()
@@ -568,26 +652,88 @@ def read_bwd_executed_flops(args) -> float:
     return float(counts.sum()) * query_blocks * 2.0 * 64 * 64 * (3 * Ck + 2 * Cv)
 
 
-def bwd_kernel_ms(args, calls=5) -> dict:
-    """Device ms per call of each of the backward's kernels on ``args``
-    (torch.profiler over ``calls`` calls, L2 warm)."""
+# the forward's executed work against the useful work, at most, in bf16
+EXECUTED_LIMIT = 1.3
+
+
+def read_fwd_executed_flops(args) -> float:
+    """The operations the forward's main kernel executes on ``args`` (the
+    forward's arguments) by the design's count, not measured: per (64-row
+    query block, listed active tile) 2*64*64*(2*Ck + Cv) in bf16 (each pair
+    of warps computes the same S for its half of the value columns) and
+    2*64*64*(Ck + Cv) in f32 (S once, through shared memory)."""
+    mk, mv, q, counts = args[0], args[1], args[2], args[5]
+    Ck, Cv = mk.shape[-1], mv.shape[-1]
+    s_passes = 2 if q.dtype == torch.bfloat16 else 1
+    query_blocks = -(-q.shape[1] * q.shape[2] // 64)
+    return float(counts.sum()) * query_blocks * 2.0 * 64 * 64 * (s_passes * Ck + Cv)
+
+
+def kernel_ms(fn, args, prefix, calls=5) -> dict:
+    """Device ms per call of each CUDA kernel named ``prefix``_<name>_kernel
+    that ``fn(*args)`` launches (torch.profiler over ``calls`` calls, L2
+    warm), by <name>."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from rmnet_tpu_torch.ops.flash_attention import flash_read_bwd
-
-    flash_read_bwd(*args)
+    fn(*args)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(calls):
-            flash_read_bwd(*args)
+            fn(*args)
         torch.cuda.synchronize()
     times = {}
     for e in prof.key_averages():
-        m = re.search(r"flash_read_bwd_([a-z]+)_kernel", e.key)
+        m = re.search(prefix + r"_([a-z0-9]+)_kernel", e.key)
         if e.device_type == DeviceType.CUDA and m:
             times[m.group(1)] = times.get(m.group(1), 0.0) + e.self_device_time_total / 1e3 / calls
     return times
+
+
+def fwd_time_row(c, flush) -> dict:
+    """The forward on read inputs ``c``: kernel, plain and SDPA ms, the bound,
+    the ms by CUDA kernel, the useful and the executed work, the split count
+    and the scratch; raises if the executed work passes 1.3x the useful work
+    in bf16."""
+    from rmnet_tpu_torch.ops.flash_attention import (
+        _QUERY_BLOCK, flash_memory_read_reference, flash_read_fwd, fwd_splits_for)
+
+    kargs = read_args(c)
+    mk, q, order, counts = kargs[0], kargs[2], kargs[4], kargs[5]
+    N, S, h, w, _ = mk.shape
+    bound_ms, bound_by, inbox, flops = read_bound(c)
+    executed = read_fwd_executed_flops(kargs)
+    splits = fwd_splits_for(mk, q.device)
+    qp = -(-h * w // _QUERY_BLOCK) * _QUERY_BLOCK
+    row = dict(
+        ms=_time_ms(lambda: flash_read_fwd(*kargs), 20, flush),
+        plain_ms=_time_ms(lambda: flash_memory_read_reference(*kargs), 5, flush),
+        library_ms=_time_ms(sdpa_read(c), 20, flush),
+        bound_ms=bound_ms, bound_by=bound_by, useful_gflop=flops / 1e9,
+        executed_gflop_by_design=executed / 1e9, inbox_positions=inbox,
+        positions=N * S * h * w, active_tiles=int(counts.sum()), tiles=order.numel(),
+        splits=splits, scratch_mb=N * splits * qp * (c["m_val"].shape[-1] + 2) * 4 / 1e6,
+        by_kernel=kernel_ms(flash_read_fwd, kargs, "flash_read_fwd"),
+        shape=dict(N=N, S=S, h=h, w=w, dtype=str(q.dtype)))
+    ratio = executed / flops
+    if q.dtype == torch.bfloat16 and ratio > EXECUTED_LIMIT:
+        raise AssertionError(f"the forward executes {ratio:.3f}x the useful work, "
+                             f"limit {EXECUTED_LIMIT}")
+    return row
+
+
+def log_fwd_times(where, row, smi) -> None:
+    log(f"time flash_read_fwd at {where}: kernel {row['ms']:.4f} ms (" + ", ".join(
+        f"{k} {v:.4f}" for k, v in row["by_kernel"].items()) + " ms by kernel, profiler, L2 "
+        f"warm), plain {row['plain_ms']:.4f} ms, sdpa over the dense bank "
+        f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms by {row['bound_by']} "
+        f"({row['useful_gflop']:.2f} GFLOP useful over {row['inbox_positions']} in-box valid "
+        f"positions of {row['positions']}; {row['active_tiles']} active tiles of "
+        f"{row['tiles']}), {row['useful_gflop'] / row['ms']:.2f} TFLOP/s useful, executed by "
+        f"the design's count {row['executed_gflop_by_design']:.2f} GFLOP "
+        f"({row['executed_gflop_by_design'] / row['useful_gflop']:.3f}x useful, limit "
+        f"{EXECUTED_LIMIT} in bf16), {row['splits']} splits, scratch "
+        f"{row['scratch_mb']:.2f} MB; {row['shape']} [{smi}]")
 
 
 def sdpa_read(c):
@@ -613,8 +759,7 @@ def sdpa_read_bwd(c, d_out):
 
 
 def phase_times(smi, run) -> tuple:
-    from rmnet_tpu_torch.ops.flash_attention import (
-        flash_memory_read, flash_memory_read_reference, flash_read_fwd, tile_metadata)
+    from rmnet_tpu_torch.ops.flash_attention import flash_memory_read, tile_metadata
 
     eng = run["engine"]
     frames, masks, n_objects = run["clip"]
@@ -636,34 +781,21 @@ def phase_times(smi, run) -> tuple:
     c = dict(zip(names, args), **kwargs)
     err = compare_read("main_path_last_read", c)
     h, w = c["q_key"].shape[1:3]
-    meta = tile_metadata(c["slot_valid"], c["bboxes"], h, w)
-    _, z, order, counts = meta
-    kargs = (c["m_key"], c["m_val"], c["q_key"], c["slot_valid"], order, counts, z)
     flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
-    ms = _time_ms(lambda: flash_read_fwd(*kargs), 20, flush)
+    fwd = fwd_time_row(c, flush)
     wrapper_ms = _time_ms(lambda: flash_memory_read(**c), 20, flush)
     meta_ms = _time_ms(lambda: tile_metadata(c["slot_valid"], c["bboxes"], h, w), 20, flush)
-    plain_ms = _time_ms(lambda: flash_memory_read_reference(*kargs), 5, flush)
-    library_ms = _time_ms(sdpa_read(c), 20, flush)
-    bound_ms, bound_by, inbox, flops = read_bound(c)
-    N, S = c["m_key"].shape[:2]
-    active = int(counts.sum())
-    log(f"time flash_read_fwd: kernel {ms:.4f} ms, wrapper with tile metadata "
-        f"{wrapper_ms:.4f} ms (metadata alone {meta_ms:.4f} ms), plain {plain_ms:.4f} ms, "
-        f"sdpa over the dense bank {library_ms:.4f} ms, bound {bound_ms:.4f} ms by "
-        f"{bound_by} ({flops / 1e9:.2f} GFLOP over {inbox} in-box valid positions of "
-        f"{N * S * h * w}; {active} active tiles of {order.numel()}), "
-        f"{flops / ms / 1e9:.2f} TFLOP/s, launches per frame "
-        f"{run['launches'] / (T - 1):.0f}; N={N} S={S} h={h} w={w} "
-        f"{c['q_key'].dtype} [{smi}]")
+    log_fwd_times("the engine's last read", fwd, smi)
+    log(f"time flash_read_fwd: wrapper with tile metadata {wrapper_ms:.4f} ms (metadata "
+        f"alone {meta_ms:.4f} ms), launches per frame {run['launches'] / (T - 1):.0f} [{smi}]")
     return dict(
         name="flash_read_fwd", route="cuda",
         source="rmnet_tpu_torch/csrc/flash_read_fwd.cu",
         replaces="rmnet_tpu/ops/flash_attention.py:226",
-        launches=run["launches"], max_abs_err=err, ms=ms, plain_ms=plain_ms,
-        bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
+        launches=run["launches"], max_abs_err=err, ms=fwd["ms"], plain_ms=fwd["plain_ms"],
+        bound_ms=fwd["bound_ms"], bound_by=fwd["bound_by"], library_ms=fwd["library_ms"],
     ), dict(frame_ms=frame_ms, fps=1e3 / frame_ms, walls_s=walls,
-            wrapper_ms=wrapper_ms, metadata_ms=meta_ms)
+            wrapper_ms=wrapper_ms, metadata_ms=meta_ms, fwd_last_read=fwd)
 
 
 # kernel-name patterns of the profile's buckets, first match wins
@@ -874,6 +1006,8 @@ def phase_train_times(smi, train) -> tuple:
         f"{train['peak_gb']:.2f} GB [{smi}]")
     c, args = train["last_read"]
     flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    fwd = fwd_time_row(c, flush)
+    log_fwd_times(f"the first step's t={train['batch']['frames'].shape[1] - 1} read", fwd, smi)
     ms = _time_ms(lambda: flash_read_bwd(*args), 20, flush)
     plain_ms = _time_ms(lambda: flash_read_bwd_reference(*args), 5, flush)
     library_ms = _time_ms(sdpa_read_bwd(c, args[6]), 20, flush)
@@ -889,7 +1023,7 @@ def phase_train_times(smi, train) -> tuple:
         f"{executed / 1e9:.2f} GFLOP, launches per step "
         f"{train['launches']['bwd'] / (1 + TRAIN_STEPS):.0f}; N={N} S={S} h={h} w={w} "
         f"{c['q_key'].dtype} [{smi}]")
-    by_kernel = bwd_kernel_ms(args)
+    by_kernel = kernel_ms(flash_read_bwd, args, "flash_read_bwd")
     log("time flash_read_bwd by kernel (profiler, L2 warm): " + ", ".join(
         f"{k} {v:.4f} ms" for k, v in by_kernel.items()) + f" [{smi}]")
     trainer, batch = train["trainer"], train["batch"]
@@ -905,7 +1039,8 @@ def phase_train_times(smi, train) -> tuple:
     return row, dict(step_ms=step_ms, clips_per_s=B / step_ms * 1e3,
                      walls_s=train["walls_s"], losses=train["losses"],
                      peak_gb=train["peak_gb"], grads=train["grads"], profile=prof,
-                     bwd_kernel_ms=by_kernel, bwd_executed_gflop_by_design=executed / 1e9)
+                     bwd_kernel_ms=by_kernel, bwd_executed_gflop_by_design=executed / 1e9,
+                     fwd_last_read=fwd)
 
 
 def main() -> int:

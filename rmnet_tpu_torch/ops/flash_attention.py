@@ -18,7 +18,17 @@ build/kernels/ and bound with ctypes:
   ``_kernel`` of rmnet_tpu/ops/flash_attention.py:61 (pallas_call at :226).
   It is bound by operations: 2*N*Q*M_active*(Ck+Cv) FLOP against the
   active K/V bytes read once, an intensity of about Q (1620 at 480p) FLOP
-  per byte, well above the H100's ridge of about 295.
+  per byte, well above the H100's ridge of about 295. Two kernels on the
+  tensor cores (bf16 mma.sync m16n8k16 with P rounded to bf16 as the TPU
+  kernel rounds it, csrc/mma_bf16.cuh; 3xTF32 for f32, csrc/mma_tf32.cuh):
+  the main kernel computes Q.K^T once per (64 query rows, active tile),
+  holds all Cv = 512 value columns of its rows and walks a fixed
+  contiguous share of the row's active tiles (a split, :func:`fwd_splits`
+  picks their count), writing a float32 partial (m, l, acc) per split; a
+  merge kernel combines the splits in a fixed order, adds the skipped
+  tiles' mass and writes ``out`` and ``lse``. Plain versions of the two:
+  :func:`flash_read_fwd_partials_reference`,
+  :func:`flash_read_fwd_merge_reference`.
 * rmnet_tpu_torch/csrc/flash_read_bwd.cu replaces ``_bwd_kernel``
   (:239, pallas_call at :335): dQ, and dK/dV of the active tiles, from the
   forward's lse, 2*N*Q*M_active*(3*Ck+2*Cv) FLOP, also bound by operations.
@@ -52,7 +62,14 @@ import torch
 KERNEL_TILE = 64
 _CK = 128  # key width the kernels take
 _CV_SLICE = 128  # value columns per block
+_FWD_CV = 512  # value width the forward kernel takes
 _BWD_CV = (128, 256, 512)  # value widths the backward kernel takes
+_QUERY_BLOCK = 64  # query rows per block of the forward
+MAX_SPLITS = 8  # memory-tile splits the forward takes (MAX_SPLITS in csrc/flash_read_fwd.cu)
+# fixed cost of one split, in tiles of work: loading the query block and
+# writing its (64, Cv + 2) float32 partial state
+_SPLIT_COST_TILES = 4
+_NEG = -1e30
 _GRID = 16  # full-resolution pixels per cell of the /16 grid memorize rasterizes on
 
 _REPO = Path(__file__).resolve().parents[2]
@@ -112,11 +129,15 @@ def tile_metadata(
     return tile_active, z, order, counts
 
 
-def _listed_positions(order, counts, slot_valid, hw, mt):
+def _listed_positions(order, counts, slot_valid, hw, mt, first=None):
     """(N, M) bool: valid positions inside the tiles listed in
-    ``order[n, :counts[n]]``, the positions a kernel reads."""
+    ``order[n, first[n]:counts[n]]`` (from 0 without ``first``), the
+    positions a kernel reads."""
     N, nt = order.shape
-    listed = (torch.arange(nt, device=order.device)[None] < counts[:, None])
+    it = torch.arange(nt, device=order.device)[None]
+    listed = it < counts[:, None]
+    if first is not None:
+        listed &= it >= first[:, None]
     active = torch.zeros(N, nt, dtype=torch.int32, device=order.device)
     active = active.scatter_add_(1, order.long(), listed.to(torch.int32)) > 0
     in_tile = active.repeat_interleave(mt, dim=1)[:, :slot_valid.shape[1] * hw]
@@ -162,6 +183,88 @@ def flash_memory_read_reference(
     lse = torch.where(l_raw > 0, m2 + torch.log(l),
                       torch.full_like(l, math.inf))
     return out.reshape(N, h, w, Cv).to(q_key.dtype), lse
+
+
+def fwd_splits(N: int, Q: int, nt: int, sm_count: int) -> int:
+    """Memory-tile splits of the forward's grid (query blocks, splits, N),
+    from the shapes and the card's SM count only (never from device data):
+    the count in 1 .. min(MAX_SPLITS, nt) that minimises the waves of
+    one-block-per-SM launches times each block's work, ``nt / splits`` tiles
+    at most plus a fixed cost per split. 5 at the engine's read (N = 2,
+    Q = 1620, nt = 836) on 132 SMs, 2 at the training read (N = 12,
+    Q = 900, nt = 43)."""
+    blocks = N * -(-Q // _QUERY_BLOCK)
+
+    def cost(s):
+        return -(-blocks * s // sm_count) * (-(-nt // s) + _SPLIT_COST_TILES)
+
+    return min(range(1, min(MAX_SPLITS, nt) + 1), key=cost)
+
+
+def flash_read_fwd_partials_reference(
+    m_key: torch.Tensor,       # (N, S, h, w, Ck)
+    m_val: torch.Tensor,       # (N, S, h, w, Cv)
+    q_key: torch.Tensor,       # (N, h, w, Ck)
+    slot_valid: torch.Tensor,  # (N, S) bool
+    order: torch.Tensor,       # (N, nt) int32 compacted active tiles
+    counts: torch.Tensor,      # (N,) int32
+    splits: int,
+    mt: int = KERNEL_TILE,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain version of the forward's main kernel -> the partial state of
+    each split, float32: m (N, splits, Q), l (N, splits, Q), acc (N, splits,
+    Q, Cv).
+
+    Split s of row n reads the listed tiles ``order[n, b:e]``, b =
+    counts[n]*s // splits, e = counts[n]*(s+1) // splits (its contiguous
+    share); m is the largest score of its valid positions, l and acc the
+    sums of ``exp(score - m)`` and of ``exp(score - m) * v`` over them. A
+    split with no tile has m = -1e30, l = 0, acc = 0.
+    """
+    N, S, h, w, Ck = m_key.shape
+    Cv = m_val.shape[-1]
+    hw = h * w
+    M = S * hw
+    qf = q_key.reshape(N, hw, Ck).float()
+    kf = m_key.reshape(N, M, Ck).float()
+    vf = m_val.reshape(N, M, Cv).float()
+    s = torch.einsum("nqc,nmc->nqm", qf, kf) / math.sqrt(Ck)
+    cnt = counts.long()
+    ms, ls, accs = [], [], []
+    for split in range(splits):
+        use = _listed_positions(order, cnt * (split + 1) // splits, slot_valid, hw, mt,
+                                first=cnt * split // splits)  # (N, M)
+        ss = s.masked_fill(~use[:, None, :], -math.inf)
+        m = ss.amax(dim=2)                                   # (N, Q)
+        m = torch.where(torch.isfinite(m), m, torch.full_like(m, _NEG))
+        p = torch.exp(ss - m[..., None])
+        ms.append(m)
+        ls.append(p.sum(dim=2))
+        accs.append(torch.einsum("nqm,nmc->nqc", p, vf))
+    return torch.stack(ms, 1), torch.stack(ls, 1), torch.stack(accs, 1)
+
+
+def flash_read_fwd_merge_reference(
+    m: torch.Tensor,     # (N, splits, Q) float32
+    l: torch.Tensor,     # (N, splits, Q)
+    acc: torch.Tensor,   # (N, splits, Q, Cv)
+    z: torch.Tensor,     # (N,) int32
+    dtype: torch.dtype,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the forward's merge kernel -> (out (N, Q, Cv) in
+    ``dtype``, lse (N, Q) float32): the splits rescaled to one maximum m2
+    (at least 0 where z > 0), the z skipped valid positions' mass
+    ``z * exp(-m2)`` added once, and the all-invalid guard (out = 0,
+    lse = +inf where nothing has weight), as flash_attention.py:98-114."""
+    zf = z.float()[:, None]                                   # (N, 1)
+    mx = m.amax(dim=1)                                        # (N, Q)
+    m2 = torch.where(zf > 0, torch.clamp(mx, min=0.0), mx)
+    wgt = torch.exp(m - m2[:, None])                          # (N, splits, Q)
+    l_raw = (wgt * l).sum(dim=1) + zf * torch.exp(-m2)
+    l_safe = torch.where(l_raw > 0, l_raw, torch.ones_like(l_raw))
+    out = (wgt[..., None] * acc).sum(dim=1) / l_safe[..., None]
+    lse = torch.where(l_raw > 0, m2 + torch.log(l_safe), torch.full_like(l_raw, math.inf))
+    return out.to(dtype), lse
 
 
 def flash_read_bwd_reference(
@@ -297,7 +400,7 @@ class _Library:
 
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-LIBRARY = _Library("flash_read_fwd", [_I] + [_P] * 9 + [_I] * 6 + [_L] * 7
+LIBRARY = _Library("flash_read_fwd", [_I] + [_P] * 11 + [_I] * 7 + [_L] * 6
                    + [ctypes.c_float, _P])
 BWD_LIBRARY = _Library("flash_read_bwd", [_I] + [_P] * 14 + [_I] * 6 + [_L] * 6
                        + [ctypes.c_float, _P])
@@ -354,7 +457,8 @@ def _check_meta(name, t, dtype, shape, align=False):
 class FlashMemoryRead(torch.autograd.Function):
     """The block-sparse read with its recompute-based flash backward
     (``jax.custom_vjp`` of flash_attention.py:375-407). Forward and backward
-    each run one kernel call on the card, their plain versions on the CPU;
+    each make one call of their kernels' wrapper on the card (two and three
+    CUDA kernels), their plain versions on the CPU;
     ``slot_valid`` and ``bboxes`` get no gradient."""
 
     @staticmethod
@@ -407,27 +511,45 @@ def flash_memory_read(
     return FlashMemoryRead.apply(m_key, m_val, q_key, slot_valid, bboxes)
 
 
+def fwd_splits_for(m_key, device) -> int:
+    """:func:`fwd_splits` for a read of bank ``m_key`` on CUDA ``device``."""
+    N, S, h, w, _ = m_key.shape
+    sm_count = torch.cuda.get_device_properties(device).multi_processor_count
+    return fwd_splits(N, h * w, -(-S * h * w // KERNEL_TILE), sm_count)
+
+
 def flash_read_fwd(m_key, m_val, q_key, slot_valid, order, counts, z):
-    """Launch the forward kernel on tile metadata from :func:`tile_metadata`
-    (at ``KERNEL_TILE``) -> (out (N, h, w, Cv), lse (N, h*w) f32). Takes CUDA
-    tensors only; adds one to ``flash_memory_read.launches``."""
+    """Launch the forward's kernels (main, then merge) on tile metadata from
+    :func:`tile_metadata` (at ``KERNEL_TILE``) -> (out (N, h, w, Cv), lse
+    (N, h*w) f32). Takes CUDA tensors only and Cv = 512; adds one to
+    ``flash_memory_read.launches`` per call. Allocates the splits' float32
+    scratch, N * splits * Qp * (Cv + 2) * 4 bytes (Qp = Q rounded up to 64,
+    splits from :func:`fwd_splits`)."""
     _check_cuda_inputs(m_key, m_val, q_key, slot_valid, order, counts)
     _check_meta("z", z, torch.int32, (m_key.shape[0],))
-    lib = LIBRARY.load()
     N, S, h, w, Ck = m_key.shape
     Cv = m_val.shape[-1]
+    if Cv != _FWD_CV:
+        raise ValueError(f"the forward kernel takes Cv == {_FWD_CV}, got {Cv}")
+    lib = LIBRARY.load()
     Q = h * w
-    out = torch.empty((N, h, w, Cv), dtype=q_key.dtype, device=q_key.device)
-    lse = torch.empty((N, Q), dtype=torch.float32, device=q_key.device)
+    dev = q_key.device
+    splits = fwd_splits_for(m_key, dev)
+    Qp = -(-Q // _QUERY_BLOCK) * _QUERY_BLOCK
+    out = torch.empty((N, h, w, Cv), dtype=q_key.dtype, device=dev)
+    lse = torch.empty((N, Q), dtype=torch.float32, device=dev)
+    part_acc = torch.empty((N, splits, Qp, Cv), dtype=torch.float32, device=dev)
+    part_ml = torch.empty((N, splits, Qp, 2), dtype=torch.float32, device=dev)
     valid_u8 = slot_valid.to(torch.uint8).contiguous()
     ks, vs = m_key.stride(), m_val.stride()
     err = lib.flash_read_fwd(
         _DTYPE_CODE[q_key.dtype], q_key.data_ptr(), m_key.data_ptr(),
         m_val.data_ptr(), valid_u8.data_ptr(), order.data_ptr(),
         counts.data_ptr(), z.data_ptr(), out.data_ptr(), lse.data_ptr(),
-        N, Q, S, Q, Cv, order.shape[1],
-        Q * Ck, ks[0], ks[1], ks[3], vs[0], vs[1], vs[3],
-        1.0 / math.sqrt(Ck), torch.cuda.current_stream(q_key.device).cuda_stream,
+        part_acc.data_ptr(), part_ml.data_ptr(),
+        N, Q, S, Q, Cv, order.shape[1], splits,
+        ks[0], ks[1], ks[3], vs[0], vs[1], vs[3],
+        1.0 / math.sqrt(Ck), torch.cuda.current_stream(dev).cuda_stream,
     )
     if err != 0:
         raise RuntimeError(f"flash_read_fwd launch failed: CUDA error {err}")

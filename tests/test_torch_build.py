@@ -65,7 +65,7 @@ def test_quoted_includes_are_headers_the_tag_covers():
     for source in _CSRC.glob("*.cu"):
         for included in re.findall(r'^#include "([^"]+)"', source.read_text(), re.M):
             assert included in headers, f"{source.name} includes {included}"
-    assert "mma_tf32.cuh" in headers
+    assert {"mma_tf32.cuh", "mma_bf16.cuh"} <= headers
 
 
 def _cpu_read():

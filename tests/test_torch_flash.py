@@ -6,9 +6,14 @@ tests/test_flash_attention.py: ``out`` at 2e-4 (that file's tolerance),
 ``lse`` at 1e-4 where finite and +inf where the Pallas kernel gives +inf,
 and the tile metadata (active tiles, z) equal to ``_tile_metadata`` at the
 Pallas tile of 512. The public wrapper (kernel tile of 64 positions) must
-give the same result. The CUDA kernel itself is held against the plain
-version on the card by tests/test_torch_kernels_gpu.py.
+give the same result. The plain versions of the forward's two CUDA kernels,
+the partial (m, l, acc) of each contiguous share of the active list and the
+fixed-order merge, are held to the same tolerances with 1, 2, 3 and more
+splits than active tiles. The CUDA kernels themselves are held against the
+plain version on the card by tests/test_torch_kernels_gpu.py.
 """
+
+import functools
 
 import numpy as np
 import pytest
@@ -19,9 +24,13 @@ import jax.numpy as jnp
 from rmnet_tpu.ops.flash_attention import _flash_fwd_impl, _tile_metadata
 
 from rmnet_tpu_torch.ops.flash_attention import (
+    MAX_SPLITS,
     flash_memory_read,
     flash_memory_read_reference,
     flash_read_fwd,
+    flash_read_fwd_merge_reference,
+    flash_read_fwd_partials_reference,
+    fwd_splits,
     tile_metadata,
 )
 
@@ -71,6 +80,12 @@ CASES = {
 }
 
 
+@functools.lru_cache(maxsize=None)
+def _pallas_case(name):
+    mk, mv, qk, _, valid, bboxes = CASES[name]()
+    return _pallas(mk, mv, qk, valid, bboxes)
+
+
 def _pallas(mk, mv, qk, valid, bboxes):
     out, lse = _flash_fwd_impl(
         jnp.asarray(mk), jnp.asarray(mv), jnp.asarray(qk), jnp.asarray(valid),
@@ -91,7 +106,7 @@ def _check(out, lse, out_ref, lse_ref):
 def test_plain_read_matches_pallas(name):
     mk, mv, qk, _, valid, bboxes = CASES[name]()
     N, S, h, w, _ = mk.shape
-    out_ref, lse_ref = _pallas(mk, mv, qk, valid, bboxes)
+    out_ref, lse_ref = _pallas_case(name)
 
     tv, tb = torch.from_numpy(valid), None if bboxes is None else torch.from_numpy(bboxes)
     act, z, order, counts = tile_metadata(tv, tb, h, w, mt=PALLAS_TILE)
@@ -113,6 +128,60 @@ def test_plain_read_matches_pallas(name):
     out_k, lse_k = flash_memory_read(torch.from_numpy(mk), torch.from_numpy(mv),
                                      torch.from_numpy(qk), tv, tb)
     _check(out_k.numpy(), lse_k.numpy(), out_ref, lse_ref)
+
+
+SPLITS = ("1", "2", "3", "more_than_tiles")
+
+
+def _split_read(name, splits):
+    """The plain split and merge (the forward's two kernels) on CASES[name]
+    at the kernel tile -> (out, lse, z, counts, splits)."""
+    mk, mv, qk, _, valid, bboxes = CASES[name]()
+    N, S, h, w, _ = mk.shape
+    tv, tb = torch.from_numpy(valid), None if bboxes is None else torch.from_numpy(bboxes)
+    _, z, order, counts = tile_metadata(tv, tb, h, w)
+    n = int(counts.max()) + 3 if splits == "more_than_tiles" else int(splits)
+    m, l, acc = flash_read_fwd_partials_reference(
+        torch.from_numpy(mk), torch.from_numpy(mv), torch.from_numpy(qk), tv, order, counts, n)
+    out, lse = flash_read_fwd_merge_reference(m, l, acc, z, torch.float32)
+    return out.reshape(N, h, w, -1), lse, (m, l), z, counts, n
+
+
+@pytest.mark.parametrize("splits", SPLITS)
+@pytest.mark.parametrize("name", list(CASES))
+def test_split_and_merge_plain_versions_match_pallas(name, splits):
+    """Partial (m, l, acc) per contiguous share of the active list, merged in
+    order with z and the all-invalid guard, is the Pallas read at 2e-4."""
+    out, lse, (m, l), _, counts, n = _split_read(name, splits)
+    out_ref, lse_ref = _pallas_case(name)
+    _check(out.numpy(), lse.numpy(), out_ref, lse_ref)
+    # a split without tiles holds m = -1e30, l = 0
+    share = [(int(c) * (s + 1) // n - int(c) * s // n) for c in counts for s in range(n)]
+    empty = torch.tensor(share).reshape(len(counts), n) == 0
+    assert bool((m[empty] == -1e30).all()) and bool((l[empty] == 0).all())
+    if splits == "more_than_tiles":
+        assert bool(empty.any())
+
+
+def test_split_cases_cover_skipped_mass_and_all_invalid_rows():
+    """The cases above include rows whose skipped tiles hold valid positions
+    (z > 0) and rows with no valid position at all (lse = +inf)."""
+    zs, infinite = [], []
+    for name in CASES:
+        _, lse, _, z, _, _ = _split_read(name, "2")
+        zs.append(int(z.max()))
+        infinite.append(bool(torch.isinf(lse).all(dim=1).any()))
+    assert max(zs) > 0 and any(infinite)
+
+
+@pytest.mark.parametrize("shape, splits", [
+    ((2, 1620, 836, 132), 5),   # the engine's read at 480p, S = 33, on an H100
+    ((12, 900, 43, 132), 2),    # the training read, 465x465 crop, S = 3
+    ((1, 60, 1, 132), 1),       # one tile: nothing to split
+    ((1, 64, 10_000, 132), MAX_SPLITS),
+])
+def test_fwd_splits_follow_shapes_and_sm_count(shape, splits):
+    assert fwd_splits(*shape) == splits
 
 
 def test_cpu_wrapper_does_not_count_launches():

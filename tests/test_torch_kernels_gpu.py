@@ -6,20 +6,24 @@ installed; tests/conftest.py imports JAX, so on the card run it as
     python -m pytest --noconftest -p no:cacheprovider -m gpu tests/test_torch_kernels_gpu.py
 
 Each test skips without a CUDA device. The cases and the comparisons are
-chip_smoke.py's. Forward (``KERNEL_CASES``, ``compare_read``): f32 at 2e-4
-(the read's tolerance in tests/test_flash_attention.py), bf16 within 1e-2 of
-the plain output's largest magnitude, ``lse`` at 2e-4 where finite and +inf
-on the same rows. Backward (``BWD_CASES``, ``compare_bwd``): dQ, dK and dV
-each within 1e-4 (f32) or 1e-2 (bf16) of the plain gradient's largest
-magnitude. Both count one launch per call. Two backward calls on the f32
-training read give bit-identical gradients (``check_bwd_deterministic``).
+chip_smoke.py's. Forward (``KERNEL_CASES``, ``compare_read``; main and
+merge kernels, against the plain read and the plain split and merge): f32 at
+2e-4 (the read's tolerance in tests/test_flash_attention.py), bf16 within
+1e-2 of the plain output's largest magnitude, ``lse`` at 2e-4 where finite
+and +inf on the same rows. Backward (``BWD_CASES``, ``compare_bwd``): dQ, dK
+and dV each within 1e-4 (f32) or 1e-2 (bf16) of the plain gradient's largest
+magnitude. Both count one launch per call. Two forward calls
+(``check_fwd_deterministic``, bf16 at the engine's shape and f32 at the
+training read) and two backward calls on the f32 training read
+(``check_bwd_deterministic``) give bit-identical results.
 """
 
 import pytest
 import torch
 
-from chip_smoke import (BWD_CASES, KERNEL_CASES, bank_case, bwd_case, check_bwd_deterministic,
-                        compare_bwd, compare_read)
+from chip_smoke import (BWD_CASES, FWD_DETERMINISM_CASES, KERNEL_CASES, bank_case, bwd_case,
+                        check_bwd_deterministic, check_fwd_deterministic, compare_bwd,
+                        compare_read)
 from rmnet_tpu_torch.ops.flash_attention import flash_memory_read
 
 
@@ -34,6 +38,13 @@ def _cuda():
 def test_flash_read_kernel_matches_plain_version(name):
     _cuda()
     compare_read(name, bank_case(*KERNEL_CASES[name]))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", FWD_DETERMINISM_CASES)
+def test_flash_read_kernel_is_deterministic(name):
+    _cuda()
+    check_fwd_deterministic(name)
 
 
 @pytest.mark.gpu
