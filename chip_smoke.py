@@ -2,6 +2,13 @@
 run inference and training through them.
 
     python3 chip_smoke.py              # one card
+    python3 chip_smoke.py --ab OTHER_CHECKOUT [--blocks 2]
+
+The second form only times the main path's engine of this checkout and of
+another (for example the parent commit, unpacked with ``git archive`` into a
+directory that .gitignore lists) in turns, blocks of other, this, this,
+other, each run a fresh process that measures with this file's code (phase
+ab); it writes build/chip_smoke/engine_ab.json.
 
 Phases, in order (each raises on failure; nothing is caught):
   device  require CUDA, print the card's name and power limit;
@@ -12,8 +19,9 @@ Phases, in order (each raises on failure; nothing is caught):
           kernel or a backward kernel);
   kernel  hold the flash-read forward (main and merge kernels) against its
           plain PyTorch version and against the plain split and merge at the
-          wrapper's split count, at the main-path shapes and the training
-          read (f32 at 2e-4; bf16 within 1e-2 of the plain output's largest
+          wrapper's split count, at the main-path shapes, the streams
+          phase's largest read (16 rows, S=33), the graphs phase's (S=3)
+          and the training read (f32 at 2e-4; bf16 within 1e-2 of the plain output's largest
           magnitude; lse at 2e-4); two calls at S33_bf16 and at the f32
           training read give bit-identical out and lse;
   kernel_bwd  hold the backward kernel against its plain version on the same
@@ -21,16 +29,28 @@ Phases, in order (each raises on failure; nothing is caught):
           plain gradient's largest magnitude in f32, 1e-2 in bf16); two calls
           on the f32 training read give bit-identical gradients;
   engine  480x854, 2 objects, memorize_every=5, T=48, bf16, flash read, auto
-          capacity, random weights: labels, launch count (T-1), and one f32
-          step through the kernel read against the dense read (the read's
-          output at 2e-4, the probabilities at 1e-3);
-  times   engine per-frame ms / FPS; the kernel, its plain version and
+          capacity, random weights, the chunk step captured as a CUDA graph
+          and replayed per chunk: labels, the forward launches replayed
+          (one per chunk step, padded steps included: 48), and one f32 step
+          through the kernel read against the dense read (the read's output
+          at 2e-4, the probabilities at 1e-3);
+  times   engine per-frame ms / FPS and graph replays per video, and
+          run_video_raw's; the kernel, its plain version and
           scaled_dot_product_attention over the dense bank, all on the
           inputs of the engine's last flash read; the kernel's bound; its
           ms by CUDA kernel (main, merge); the work its kernels execute by
           the design's count beside the useful work (fails past 1.3x);
-  profile device time per frame by kernel kind (torch.profiler), the
-          device's busy share; the kernel table in build/chip_smoke/profile.txt;
+  profile device time per frame by kernel kind over graph replays
+          (torch.profiler), the device's busy share; the kernel table in
+          build/chip_smoke/profile.txt;
+  graphs  a 12-frame 480x854 clip, memorize_every 5, capacity 2 (the ring
+          wraps): the graphed engine against the engine's chunk function run
+          eagerly on the card, bit-identical probabilities and labels, at
+          bf16 and at f32 (TF32 off); then update_weights to the weights of
+          seed 1 and a replay, bit-identical to a fresh engine with them;
+  raw     run_video_raw against run_video_labels on one uint8 clip with an
+          ignore region (f32, T=16): label mismatch share below 2e-3;
+  tta     multi_scale_inference with scales (1.0, 0.75) and the flip, T=12;
   train   the reference training shape at full width (B=4, T=3, 3 objects,
           465x465, f32, flash read, frozen BN, Adam at lr 1e-5): the first
           step's gradient through the flash read against the dense read
@@ -46,7 +66,19 @@ Phases, in order (each raises on failure; nothing is caught):
           at the same read; the backward's bound and the work its kernels
           execute by the design's count (chip_bwd_probe.py counts it on the
           card); one step profiled
-          (build/chip_smoke/profile_train.txt).
+          (build/chip_smoke/profile_train.txt);
+  streams lockstep N = 1, 2, 4, 8 at 480x854, T=48, bf16: aggregate FPS and
+          peak memory; at f32 (T=16) each batched stream against the stream
+          served alone, and a ragged run_video_batch of three lengths with
+          mixed schedules against each video alone: frame 1's
+          probabilities within 1e-4, the clip's label mismatch share below
+          2e-3 (STREAM_PROB_TOL, STREAM_LABEL_BUDGET); what differs with the
+          batch (batch_variance: the leaf modules where the batch enters);
+          the same runs again with one split count for every read and cuDNN
+          off (pinned_splits, without_cudnn): every stream bit-identical to
+          itself alone.
+Every engine run holds the forward launches replayed to the chunk steps of
+its chunk plan (``counted``).
 
 Prints the card's name and power limit, the kernel table as one JSON line
 before the last, and as the last line {"ok": true, "device": {...}}. The
@@ -55,7 +87,10 @@ numbers also go to build/chip_smoke/chip_smoke.json.
 
 from __future__ import annotations
 
+import argparse
 import dataclasses
+import functools
+import gc
 import json
 import math
 import os
@@ -229,7 +264,18 @@ KERNEL_CASES = {
     # 480x480 (30x30), capacity 2 plus the ephemeral slot, the slot being
     # written this frame invalid
     "train_S3_f32": (12, 3, 30, 30, torch.float32, 8, (1,)),
+    # the streams phase's largest read: N = 8 lockstep streams of 2 objects
+    # (16 rows), S = 33, where fwd_splits takes 6 splits on an H100
+    "streams_N16_S33_bf16": (16, 33, 30, 54, torch.bfloat16, 12, range(11, 32)),
+    "streams_N16_S33_f32": (16, 33, 30, 54, torch.float32, 13, range(11, 32)),
+    # the graphs phase's read: capacity 2 plus the ephemeral slot, the slot
+    # being written this frame invalid
+    "graphs_S3_bf16": (2, 3, 30, 54, torch.bfloat16, 14, (1,)),
+    "graphs_S3_f32": (2, 3, 30, 54, torch.float32, 15, (1,)),
 }
+# inference-only reads that the backward never takes (its plain version
+# would hold tens of GB at 16 rows of S = 33)
+FWD_ONLY_CASES = ("streams_N16_S33_bf16", "streams_N16_S33_f32")
 
 
 def read_args(c) -> tuple:
@@ -337,10 +383,10 @@ def phase_kernel() -> None:
 # inputs and the kernel rounds once, so at most half an ulp, max|plain|/256.
 BWD_F32_REL_TOL, BWD_BF16_REL_TOL = 1e-4, 1e-2
 
-# the forward's cases (the f32 training read among them) plus the training
-# read in bf16
+# the forward's cases (the f32 training read among them) but the
+# inference-only ones, plus the training read in bf16
 BWD_CASES = {
-    **KERNEL_CASES,
+    **{k: v for k, v in KERNEL_CASES.items() if k not in FWD_ONLY_CASES},
     "train_S3_bf16": (12, 3, 30, 30, torch.bfloat16, 9, (1,)),
 }
 
@@ -423,20 +469,44 @@ def phase_kernel_bwd() -> None:
 
 
 # ----------------------------------------------------------------- engine
-def make_clip(T, H, W, n_obj):
-    """bench.py's synthetic clip: uniform noise frames, boxes drifting down."""
+def make_clip(T, H, W, n_obj, seed=0, appear=0):
+    """bench.py's synthetic clip (with the defaults): uniform noise frames,
+    boxes drifting down. ``seed`` also shifts the boxes; the last object
+    appears at frame ``appear`` (never if >= T), with its masks given there."""
     K = n_obj + 1
-    rs = np.random.RandomState(0)
+    rs = np.random.RandomState(seed)
     frames = rs.rand(T, H, W, 3).astype(np.float32) * 2 - 1
     labels = np.zeros((T, H, W), np.uint8)
+    x = 150 + 20 * seed
     for t in range(T):
         y = 100 + 2 * t
-        labels[t, y:y + 120, 150:300] = 1
-        if K > 2:
-            labels[t, y + 40:y + 180, 450:620] = 2
+        labels[t, y:y + 120, x:x + 150] = 1
+        if K > 2 and t >= appear:
+            labels[t, y + 40:y + 180, x + 300:x + 470] = 2
     masks = np.zeros((T, K, H, W), np.float32)
-    masks[0] = np.stack([labels[0] == k for k in range(K)])
-    return frames, masks, np.full((T,), n_obj, np.int32)
+    for t in {0, min(appear, T - 1)}:
+        masks[t] = np.stack([labels[t] == k for k in range(K)])
+    n_objects = np.where(np.arange(T) >= appear, n_obj, n_obj - 1).astype(np.int32)
+    return frames, masks, n_objects
+
+
+def counted(eng, fn, T, passes=1):
+    """``fn()`` with the forward's counts set to 0 -> (its result, counts).
+    Raises unless the forward launches replayed from the engine's graphs
+    equal the chunk steps of ``passes`` runs of a T-frame video, padded
+    steps included, and every eager launch was a graph's warm-up."""
+    from rmnet_tpu_torch.ops.flash_attention import flash_memory_read as fmr
+
+    fmr.launches = fmr.captured = fmr.replayed = 0
+    replays = eng.replays
+    result = fn()
+    steps = passes * sum(eng._chunk_plan(T - 1))
+    counts = dict(eager=fmr.launches, captured=fmr.captured, replayed=fmr.replayed,
+                  chunk_steps=steps, graph_replays=eng.replays - replays)
+    if fmr.replayed != steps or fmr.launches != fmr.captured:
+        raise AssertionError(f"forward launches {counts}: want replayed == chunk steps "
+                             f"and eager (warm-up) == captured")
+    return result, counts
 
 
 class _Record:
@@ -482,8 +552,8 @@ STEP_T, STEP_CAPACITY = 12, 8
 
 
 def step_agreement(rm_sd, tfn_sd, frames, masks, n_objects) -> tuple:
-    """Run an f32 engine's step loop to frame STEP_T, then that step twice
-    from one state: kernel read and dense read. Returns max |mem diff| of the
+    """Run an f32 engine's steps to frame STEP_T, then that step twice from
+    one state: kernel read and dense read. Returns max |mem diff| of the
     read itself (N, h, w, Cv), max |mem|, and max |est diff| of the
     (1, K, H, W) probabilities; raises past the tolerances."""
     from rmnet_tpu_torch.config import Config
@@ -496,16 +566,20 @@ def step_agreement(rm_sd, tfn_sd, frames, masks, n_objects) -> tuple:
     ks = torch.arange(K, device=dev)
     obj_valid = ((ks >= 1) & (ks <= int(n_objects.max())))[None]
     any_new, commit = eng._video_flags(n_objects, len(frames))
+
+    def flag(x):
+        return torch.tensor([bool(x)], device=dev)
+
     with torch.inference_mode():
         f = torch.from_numpy(frames[:STEP_T + 1]).to(dev).permute(0, 3, 1, 2)
-        state = eng.apply.init_state(f[:1], torch.from_numpy(masks[0]).to(dev)[None],
-                                     STEP_CAPACITY)
+        m = torch.from_numpy(masks[:STEP_T + 1]).to(dev)
+        state = eng.apply.init_state(f[:1], m[:1], STEP_CAPACITY)
         for t in range(1, STEP_T + 1):
             frame = f[t:t + 1]
             flow = eng.tflownet.pair_forward(frame, state.prev_frame)
             if t < STEP_T:
-                state, _ = eng.apply.step(state, frame, flow, None, False,
-                                          bool(commit[t - 1]), obj_valid)
+                state, _ = eng.apply.step(state, frame, flow, m[t:t + 1], flag(any_new[t]),
+                                          flag(commit[t - 1]), obj_valid)
         ests, mems = {}, {}
         for flash, read in ((True, "flash_memory_read"), (False, "_dense_read")):
             apply = dataclasses.replace(eng.apply, use_flash_attention=flash)
@@ -513,8 +587,9 @@ def step_agreement(rm_sd, tfn_sd, frames, masks, n_objects) -> tuple:
                                     values=state.values.clone(),
                                     bboxes=state.bboxes.clone())
             with _Record(read) as rec:
-                _, ests[flash] = apply.step(s, frame, flow, None, False,
-                                            bool(commit[STEP_T - 1]), obj_valid)
+                _, ests[flash] = apply.step(s, frame, flow, m[STEP_T:STEP_T + 1],
+                                            flag(any_new[STEP_T]), flag(commit[STEP_T - 1]),
+                                            obj_valid)
             mems[flash] = rec.result[0]
     mem_err = (mems[True] - mems[False]).abs().max().item()
     mem_peak = mems[False].abs().max().item()
@@ -528,41 +603,47 @@ def step_agreement(rm_sd, tfn_sd, frames, masks, n_objects) -> tuple:
     return mem_err, mem_peak, est_err
 
 
+def check_labels(labels, masks, T, H, W, n_obj, what) -> None:
+    if labels.shape != (T, H, W) or labels.dtype != np.uint8:
+        raise AssertionError(f"{what}: labels {labels.shape} {labels.dtype}, want "
+                             f"({T}, {H}, {W}) uint8")
+    if int(labels.max()) >= n_obj + 1:
+        raise AssertionError(f"{what}: label {int(labels.max())} outside [0, {n_obj + 1})")
+    if not np.array_equal(labels[0], masks[0].argmax(0)):
+        raise AssertionError(f"{what}: frame 0 labels are not the annotation")
+
+
 def phase_engine(models) -> dict:
     from rmnet_tpu_torch.config import Config
     from rmnet_tpu_torch.engine import InferenceEngine
-    from rmnet_tpu_torch.ops.flash_attention import flash_memory_read
 
     rm_sd, tfn_sd = models
     T, H, W, n_obj = T_FRAMES, HEIGHT, WIDTH, N_OBJECTS
     frames, masks, n_objects = make_clip(T, H, W, n_obj)
     eng = InferenceEngine(Config(), rm_sd, tfn_sd, memorize_every=MEMORIZE_EVERY,
                           dtype=torch.bfloat16)
-    if not (eng.use_flash_attention and eng.capacity == 0):
-        raise AssertionError("the engine's defaults are no longer flash read and auto capacity")
+    if not (eng.use_flash_attention and eng.capacity == 0 and eng.chunk == 8):
+        raise AssertionError("the engine's defaults are no longer flash read, auto "
+                             "capacity and chunks of 8")
 
+    # the first run captures the chunk programs (the recorded reads are the
+    # captured ones: their tensors hold what the last replay of the last
+    # captured program left)
     with _Record("flash_memory_read") as rec:
-        flash_memory_read.launches = 0
         t0 = time.perf_counter()
-        labels = eng.run_video_labels(frames, masks, n_objects)
+        labels, launches = counted(eng, lambda: eng.run_video_labels(frames, masks, n_objects),
+                                   T)
         first_s = time.perf_counter() - t0
-        launches = flash_memory_read.launches
-    if labels.shape != (T, H, W) or labels.dtype != np.uint8:
-        raise AssertionError(f"labels {labels.shape} {labels.dtype}, want ({T}, {H}, {W}) uint8")
-    if int(labels.max()) >= n_obj + 1:
-        raise AssertionError(f"label {int(labels.max())} outside [0, {n_obj + 1})")
-    if not np.array_equal(labels[0], masks[0].argmax(0)):
-        raise AssertionError("frame 0 labels are not the annotation")
-    if launches != T - 1:
-        raise AssertionError(f"flash kernel launched {launches} times, want {T - 1}")
+    check_labels(labels, masks, T, H, W, n_obj, "engine")
     fg = [float((labels[t] > 0).mean()) for t in (1, T // 2, T - 1)]
     log(f"engine: {T}x{H}x{W} bf16 flash, capacity {eng._capacity_for(T, eng._video_flags(n_objects, T)[1])}, "
-        f"first run {first_s:.2f} s, kernel launches {launches} (T-1 = {T - 1}), "
-        f"labels {labels.shape} {labels.dtype} max {int(labels.max())}, "
-        f"foreground share at t=1, T/2, T-1: {fg}")
+        f"chunk plan {eng._chunk_plan(T - 1)}, first run (captures included) {first_s:.2f} s, "
+        f"forward launches {launches}, labels {labels.shape} {labels.dtype} max "
+        f"{int(labels.max())}, foreground share at t=1, T/2, T-1: {fg}")
 
     mem_err, mem_peak, est_err = step_agreement(rm_sd, tfn_sd, frames, masks, n_objects)
-    return dict(engine=eng, clip=(frames, masks, n_objects), launches=launches,
+    return dict(engine=eng, clip=(frames, masks, n_objects),
+                launches=launches["eager"] + launches["replayed"], launch_counts=launches,
                 read_args=rec.args, step_mem_err=mem_err, step_mem_peak=mem_peak,
                 step_err=est_err)
 
@@ -764,16 +845,19 @@ def phase_times(smi, run) -> tuple:
     eng = run["engine"]
     frames, masks, n_objects = run["clip"]
     T = len(frames)
-    walls = []
-    for _ in range(3):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        eng.run_video_labels(frames, masks, n_objects)
-        walls.append(time.perf_counter() - t0)
+    replays = eng.replays
+    walls = _walls(lambda: eng.run_video_labels(frames, masks, n_objects), 3)
+    replays = (eng.replays - replays) // 3
     frame_ms = statistics.median(walls) / (T - 1) * 1e3
     log(f"time engine: {frame_ms:.3f} ms/frame, {1e3 / frame_ms:.2f} FPS "
         f"(median of 3 runs of run_video_labels, wall / {T - 1} frames, "
-        f"upload and download included) [{smi}]")
+        f"upload and download included), {replays} graph replays per video [{smi}]")
+    frames_u8, labels_u8 = raw_clip(frames, masks)
+    counted(eng, lambda: eng.run_video_raw(frames_u8, labels_u8, n_objects), T)
+    raw_walls = _walls(lambda: eng.run_video_raw(frames_u8, labels_u8, n_objects), 3)
+    raw_ms = statistics.median(raw_walls) / (T - 1) * 1e3
+    log(f"time engine raw: {raw_ms:.3f} ms/frame, {1e3 / raw_ms:.2f} FPS (median of 3 runs "
+        f"of run_video_raw on the uint8 clip, after one that captures) [{smi}]")
 
     # the engine's last read, at the main path's shapes and data
     args, kwargs = run["read_args"]
@@ -787,15 +871,40 @@ def phase_times(smi, run) -> tuple:
     meta_ms = _time_ms(lambda: tile_metadata(c["slot_valid"], c["bboxes"], h, w), 20, flush)
     log_fwd_times("the engine's last read", fwd, smi)
     log(f"time flash_read_fwd: wrapper with tile metadata {wrapper_ms:.4f} ms (metadata "
-        f"alone {meta_ms:.4f} ms), launches per frame {run['launches'] / (T - 1):.0f} [{smi}]")
+        f"alone {meta_ms:.4f} ms), launches per frame replayed "
+        f"{run['launch_counts']['replayed'] / (T - 1):.3f} [{smi}]")
     return dict(
         name="flash_read_fwd", route="cuda",
         source="rmnet_tpu_torch/csrc/flash_read_fwd.cu",
         replaces="rmnet_tpu/ops/flash_attention.py:226",
         launches=run["launches"], max_abs_err=err, ms=fwd["ms"], plain_ms=fwd["plain_ms"],
         bound_ms=fwd["bound_ms"], bound_by=fwd["bound_by"], library_ms=fwd["library_ms"],
-    ), dict(frame_ms=frame_ms, fps=1e3 / frame_ms, walls_s=walls,
+    ), dict(frame_ms=frame_ms, fps=1e3 / frame_ms, walls_s=walls, replays_per_video=replays,
+            raw_frame_ms=raw_ms, raw_walls_s=raw_walls, launches=run["launch_counts"],
             wrapper_ms=wrapper_ms, metadata_ms=meta_ms, fwd_last_read=fwd)
+
+
+def _walls(fn, n) -> list:
+    """Host seconds of ``n`` calls of ``fn``, each after a synchronize (the
+    engine's runs end on the host with their output)."""
+    walls = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        walls.append(time.perf_counter() - t0)
+    return walls
+
+
+def raw_clip(frames, masks, ignore=False):
+    """The uint8 counterpart of a clip: frames mapped from [-1, 1] to
+    0..255, label maps from the one-hot masks (frame 0's annotation, 0
+    elsewhere); with ``ignore``, a 255 (ignore) band in every label map."""
+    frames_u8 = np.round((frames + 1) * 127.5).astype(np.uint8)
+    labels = masks.argmax(axis=1).astype(np.uint8)
+    if ignore:
+        labels[:, :, :16] = 255
+    return frames_u8, labels
 
 
 # kernel-name patterns of the profile's buckets, first match wins
@@ -851,7 +960,406 @@ def profile_device(smi, fn, n, unit, wall_ms, out_name) -> dict:
     for name, v in sorted(buckets.items(), key=lambda kv: -kv[1]):
         if v > 0:
             log(f"  {v:8.3f} ms/{unit}  {v / busy:6.1%}  {name}")
-    return dict(buckets_ms=buckets, busy_ms=busy, unit=unit)
+    return dict(buckets_ms=buckets, busy_ms=busy, unit=unit,
+                kernels_per_unit=sum(e.count for e in kernels) / n)
+
+
+# ----------------------------------------------------------------- graphs
+GRAPH_T, GRAPH_CAPACITY = 12, 2
+
+
+def eager_probs(eng, frames, masks, n_objects, capacity) -> np.ndarray:
+    """The engine's chunk function run eagerly on the card over the whole
+    clip as one chunk (no graph, no padding) -> (T, K, H, W) probabilities,
+    frame 0's the annotation."""
+    T, K = masks.shape[:2]
+    dev = eng.device
+    any_new, commit = eng._video_flags(n_objects, T)
+
+    def flags(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)[:, None]
+
+    with torch.inference_mode():
+        f = torch.from_numpy(frames).to(dev)
+        m = torch.from_numpy(masks).to(dev)
+        state = eng.apply.init_state(f[:1].permute(0, 3, 1, 2), m[:1], capacity,
+                                     dtype=eng.dtype)
+        ks = torch.arange(K, device=dev)
+        obj_valid = ((ks >= 1) & (ks <= int(n_objects.max())))[None]
+        inp = dict(frames=f[1:, None], gt=m[1:, None], any_new=flags(any_new[1:]),
+                   commit=flags(commit[:-1]), valid=flags(np.ones(T - 1, bool)))
+        probs = eng._chunk_fn(state, obj_valid, False, True, inp)[:, 0]
+        return torch.cat([m[:1], probs]).cpu().numpy()
+
+
+def graphed_vs_eager(eng, clip, what) -> dict:
+    """The graphed engine's probabilities and labels against eager_probs on
+    ``clip``: bit-identical, or raises."""
+    frames, masks, n_objects = clip
+    T = len(frames)
+    probs, counts = counted(eng, lambda: eng.run_video(frames, masks, n_objects), T)
+    labels, _ = counted(eng, lambda: eng.run_video_labels(frames, masks, n_objects), T)
+    ref = eager_probs(eng, frames, masks, n_objects, GRAPH_CAPACITY)
+    ref_labels = ref.argmax(axis=1).astype(np.uint8)
+    same_p, same_l = np.array_equal(probs, ref), np.array_equal(labels, ref_labels)
+    log(f"graphs {what}: graphed vs eager, probabilities bit-identical {same_p} (max diff "
+        f"{np.abs(probs - ref).max():.3e}), labels equal {same_l}; forward launches {counts} "
+        f"{'ok' if same_p and same_l else 'FAIL'}")
+    if not (same_p and same_l):
+        raise AssertionError(f"graphs {what}: the graphed engine differs from the eager chunk")
+    return dict(probs=probs, launches=counts)
+
+
+def graph_engine(models, dtype):
+    """The graphs phase's engine: memorize_every 5, capacity GRAPH_CAPACITY."""
+    from rmnet_tpu_torch.config import Config
+    from rmnet_tpu_torch.engine import InferenceEngine
+
+    return InferenceEngine(Config(), *models, memorize_every=MEMORIZE_EVERY,
+                           capacity=GRAPH_CAPACITY, dtype=dtype)
+
+
+def check_update_weights(eng, clip, before) -> None:
+    """update_weights on ``eng`` (its graphs captured) to the weights of
+    seed 1, then a run that only replays: bit-identical to a fresh engine
+    with those weights and unlike ``before`` (the old weights' output), or
+    raises."""
+    from rmnet_tpu_torch.models.weights import build_models
+
+    rmnet1, tfn1 = build_models(seed=1)
+    new = (rmnet1.state_dict(), tfn1.state_dict())
+    eng.update_weights(*new)
+    after, counts = counted(eng, lambda: eng.run_video(*clip), len(clip[0]))
+    fresh = graph_engine(new, eng.dtype).run_video(*clip)
+    same, changed = np.array_equal(after, fresh), not np.array_equal(after, before)
+    ok = same and changed and counts["captured"] == 0
+    log(f"graphs: update_weights then a replay (no capture: {counts['captured'] == 0}) "
+        f"bit-identical to a fresh engine with those weights {same}, outputs changed "
+        f"{changed} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("update_weights under the graphs differs from a fresh engine")
+
+
+def phase_graphs(models) -> dict:
+    clip = make_clip(GRAPH_T, HEIGHT, WIDTH, N_OBJECTS)
+    report = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        eng = graph_engine(models, dtype)
+        if int(eng._video_flags(clip[2], GRAPH_T)[1][:-1].sum()) <= GRAPH_CAPACITY:
+            raise AssertionError("the graphs clip no longer wraps the ring")
+        before = graphed_vs_eager(eng, clip, str(dtype))
+        report[str(dtype)] = before["launches"]
+    check_update_weights(eng, clip, before["probs"])  # the f32 engine
+    return report
+
+
+# ---------------------------------------------------------------- streams
+STREAM_COUNTS = (1, 2, 4, 8)
+STREAM_CHECK_T = 16  # the f32 equality checks' depth
+RAGGED = ((16, 0), (11, 5), (7, 99))  # (length, frame the second object appears)
+
+
+def stream_clips(n, T, appear=0):
+    """``n`` clips of make_clip with seeds 0..n-1, stacked (N, T, ...)."""
+    clips = [make_clip(T, HEIGHT, WIDTH, N_OBJECTS, seed=i, appear=appear) for i in range(n)]
+    return tuple(np.stack(parts) for parts in zip(*clips))
+
+
+def phase_streams(smi, models) -> dict:
+    from rmnet_tpu_torch.config import Config
+    from rmnet_tpu_torch.engine import InferenceEngine
+
+    eng = InferenceEngine(Config(), *models, memorize_every=MEMORIZE_EVERY,
+                          dtype=torch.bfloat16)
+    T = T_FRAMES
+    curve = {}
+    for n in STREAM_COUNTS:
+        frames, masks, n_objects = stream_clips(n, T)
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        _, counts = counted(eng, lambda: eng.run_videos_labels(frames, masks, n_objects), T)
+        peak = torch.cuda.max_memory_allocated()
+        walls = _walls(lambda: eng.run_videos_labels(frames, masks, n_objects), 2)
+        fps = n * (T - 1) / statistics.median(walls)
+        curve[n] = dict(aggregate_fps=fps, walls_s=walls, peak_gb=peak / 1e9,
+                        peak_over_base_gb=(peak - base) / 1e9, launches=counts)
+        log(f"streams: N={n} lockstep {HEIGHT}x{WIDTH} T={T} bf16: aggregate {fps:.2f} FPS "
+            f"({fps / n:.2f} per stream; median of 2 runs after the one that captures), peak "
+            f"memory {peak / 1e9:.2f} GB ({(peak - base) / 1e9:.2f} GB above the "
+            f"{base / 1e9:.2f} GB held before), forward launches {counts} [{smi}]")
+    from rmnet_tpu_torch.ops.flash_attention import fwd_splits_for
+
+    n = max(STREAM_COUNTS)
+    mk = torch.empty((n * N_OBJECTS, 33, 30, 54, 128), device="meta")
+    if tuple(mk.shape[:4]) != KERNEL_CASES["streams_N16_S33_bf16"][:4]:
+        raise AssertionError("the kernel cases no longer hold the streams phase's largest read")
+    splits = fwd_splits_for(mk, torch.device("cuda"))
+    curve["fwd_splits_at_largest_n"] = dict(
+        rows=n * N_OBJECTS, splits=splits, scratch_mb=n * N_OBJECTS * splits * 1664 * 514 * 4 / 1e6)
+    log(f"streams: forward at N={n} ({n * N_OBJECTS} rows, S=33, 30x54): {splits} splits, "
+        f"scratch {curve['fwd_splits_at_largest_n']['scratch_mb']:.2f} MB")
+    del eng
+    gc.collect()  # the bf16 engine's graphs and states
+
+    # f32: batched streams against each stream served alone, as served,
+    # then with what depends on the batch made independent of it: one split
+    # count for every read and cuDNN off
+    curve["f32_agreement"] = f32_agreement(models, "as served", check_streams)
+    one_stream = torch.empty((N_OBJECTS,) + KERNEL_CASES["S33_f32"][1:4] + (128,),
+                             device="meta")
+    splits = fwd_splits_for(one_stream, torch.device("cuda"))
+    clips = stream_clips(2, 2)
+    curve["batch_variance"] = batch_variance(models, clips, "as served")
+    witness = f"{splits} splits for every read, cuDNN off"
+    with pinned_splits(splits), without_cudnn():
+        curve["batch_variance_witness"] = batch_variance(models, clips, witness)
+        curve["f32_agreement_witness"] = f32_agreement(models, witness, check_streams_equal)
+    return curve
+
+
+def f32_agreement(models, splits_text, check) -> dict:
+    """A fresh f32 engine (its graphs captured here): lockstep N = 2, 4, 8
+    at STREAM_CHECK_T and a ragged run_video_batch of RAGGED against each
+    stream served alone; ``check(what, rows)`` raises on disagreement."""
+    from rmnet_tpu_torch.config import Config
+    from rmnet_tpu_torch.engine import InferenceEngine
+
+    f32 = InferenceEngine(Config(), *models, memorize_every=MEMORIZE_EVERY,
+                          dtype=torch.float32)
+    T, n = STREAM_CHECK_T, max(STREAM_COUNTS)
+    frames, masks, n_objects = stream_clips(n, T)
+    alone = [counted(f32, lambda: f32.run_video(frames[i], masks[i], n_objects[i]), T)[0]
+             for i in range(n)]
+    agreement = {}
+    for n in STREAM_COUNTS[1:]:
+        got, _ = counted(f32, lambda: f32.run_videos(frames[:n], masks[:n], n_objects[:n]), T)
+        agreement[n] = [stream_agreement(got[i], alone[i]) for i in range(n)]
+        check(f"N={n} f32 lockstep, {splits_text}", agreement[n])
+    # ragged lengths and mixed schedules
+    vids = []
+    for i, (length, appear) in enumerate(RAGGED):
+        vids.append(make_clip(length, HEIGHT, WIDTH, N_OBJECTS, seed=i, appear=appear))
+    got, counts = counted(f32, lambda: f32.run_video_batch(vids, return_probs=True),
+                          max(n for n, _ in RAGGED))
+    agreement["ragged"] = []
+    for i, v in enumerate(vids):
+        single = counted(f32, lambda: f32.run_video(*v), len(v[0]))[0]
+        if got[i].shape != single.shape:
+            raise AssertionError(f"ragged video {i}: {got[i].shape}, alone {single.shape}")
+        agreement["ragged"].append(stream_agreement(got[i], single))
+    check(f"ragged run_video_batch of lengths {[n for n, _ in RAGGED]} with the second "
+          f"object at {[a for _, a in RAGGED]}, f32, {splits_text} (forward launches "
+          f"{counts})", agreement["ragged"])
+    return agreement
+
+
+class pinned_splits:
+    """Every forward read made inside takes ``splits`` memory-tile splits,
+    whatever its row count: fwd_splits_for is replaced in the wrapper's
+    module (the kernel is unchanged). Engines made inside capture their
+    graphs with it."""
+
+    def __init__(self, splits):
+        import rmnet_tpu_torch.ops.flash_attention as fa
+
+        self.mod, self.splits, self.real = fa, splits, fa.fwd_splits_for
+
+    def __enter__(self):
+        self.mod.fwd_splits_for = lambda m_key, device: self.splits
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.fwd_splits_for = self.real
+
+
+# Batched against alone at f32 (phase streams). Two choices depend on the
+# batch: cuDNN's algorithm per shape (on an H100 at N = 2: TinyFlowNet's
+# deconv4 and the memory encoder's res3.1.conv2 round differently) and, past
+# 2 streams, the forward's split count (fwd_splits reads the row count). So
+# a stream's sums run in another order in a batch; batch_variance finds
+# where. Frame 1, segmented against the same ground-truth box, holds
+# tests/test_engine_multistream.py's 1e-4 on the probabilities. Later frames
+# pass the rounding through the box op's 0.5 threshold and argmax near-ties
+# (one stream of eight at N = 8 moved by 2.9e-2 over 5664 pixels), so over
+# the clip the labels hold tests/test_engine_raw.py's budget for two
+# computations whose inputs differ in the last bits: a mismatch share below
+# 2e-3. The witness run takes both choices away (pinned_splits,
+# without_cudnn) and holds every stream bit-identical to itself alone.
+STREAM_PROB_TOL, STREAM_LABEL_BUDGET = 1e-4, 2e-3
+
+
+def stream_agreement(got, ref) -> dict:
+    """One stream's (T, K, H, W) probabilities batched (``got``) against
+    alone (``ref``)."""
+    swapped = got.argmax(axis=1) != ref.argmax(axis=1)
+    return dict(frame1_max_diff=float(np.abs(got[1] - ref[1]).max()),
+                max_diff=float(np.abs(got - ref).max()), swapped=int(swapped.sum()),
+                mismatch_share=float(swapped.mean()))
+
+
+def check_streams_equal(what, rows) -> None:
+    """Probabilities bit-identical to the stream alone over the whole clip,
+    so labels equal too."""
+    ok = all(r["max_diff"] == 0 and r["swapped"] == 0 for r in rows)
+    whole = ", ".join(f"{r['max_diff']:.2e}" for r in rows)
+    log(f"streams: {what}, each stream against itself alone: labels equal "
+        f"{[r['swapped'] == 0 for r in rows]}; max|prob diff| over the clip [{whole}] (0) "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{what}: batched streams differ from the streams alone "
+                             f"({[r['swapped'] for r in rows]} labels, max|diff| [{whole}])")
+
+
+def check_streams(what, rows) -> None:
+    ok = all(r["frame1_max_diff"] <= STREAM_PROB_TOL
+             and r["mismatch_share"] < STREAM_LABEL_BUDGET for r in rows)
+    first = ", ".join(f"{r['frame1_max_diff']:.2e}" for r in rows)
+    whole = ", ".join(f"{r['max_diff']:.2e}" for r in rows)
+    share = ", ".join(f"{r['mismatch_share']:.2e}" for r in rows)
+    log(f"streams: {what}, each stream against itself alone: frame 1 max|prob diff| "
+        f"[{first}] (<= {STREAM_PROB_TOL}); label mismatch share [{share}] (< "
+        f"{STREAM_LABEL_BUDGET}; {[r['swapped'] for r in rows]} pixels); max|prob diff| over "
+        f"the clip [{whole}] {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{what}: batched streams differ from the streams alone")
+
+
+def batch_variance(models, clips, what) -> dict:
+    """Where the batch enters, at f32: one step (frame 1) of the engine's
+    chunk function, run eagerly on the card for stream 0 alone and for
+    streams 0 and 1 as a batch. Each leaf module's call and the forward
+    read, in call order, compared on stream 0's rows: the calls whose
+    inputs agree and whose output differs are where the batch changes the
+    arithmetic. Also max |diff| of the read and of the probabilities."""
+    from rmnet_tpu_torch.config import Config
+    from rmnet_tpu_torch.engine import InferenceEngine
+
+    frames, masks, n_objects = clips
+    eng = InferenceEngine(Config(), *models, memorize_every=MEMORIZE_EVERY,
+                          dtype=torch.float32)
+    dev, K = eng.device, masks.shape[2]
+    leaves = [(f"{net}.{name}", mod) for net, root in (("rmnet", eng.rmnet),
+                                                      ("tflownet", eng.tflownet))
+              for name, mod in root.named_modules() if not list(mod.children())]
+    alone, calls = [], []
+
+    def rows_diff(b, a):
+        if b.shape[0] != 2 * a.shape[0] or b.shape[1:] != a.shape[1:]:
+            return math.nan
+        return (b[:a.shape[0]].float() - a.float()).abs().max().item()
+
+    def hook(name, record):
+        def fn(mod, args, out):
+            ins = [x for x in args if torch.is_tensor(x)]
+            if record:  # clone: in-place ops after the call may change them
+                alone.append((name, [x.clone() for x in ins], out.clone()))
+                return
+            a_name, a_ins, a_out = alone[len(calls)]
+            in_diff = max([rows_diff(x, y) for x, y in zip(ins, a_ins)], default=0.0)
+            calls.append((name, in_diff, rows_diff(out, a_out)))
+        return fn
+
+    def one_step(n):
+        handles = [m.register_forward_hook(hook(name, n == 1)) for name, m in leaves]
+        try:
+            with torch.inference_mode(), _Record("flash_memory_read") as rec:
+                f = torch.from_numpy(np.ascontiguousarray(frames[:n, :2])).to(dev)
+                m = torch.from_numpy(np.ascontiguousarray(masks[:n, :2])).to(dev)
+                state = eng.apply.init_state(f[:, 0].permute(0, 3, 1, 2), m[:, 0], 32)
+                ks = torch.arange(K, device=dev)
+                obj_valid = ((ks >= 1) & (ks <= int(n_objects.max())))[None].expand(n, K)
+                flag = functools.partial(torch.full, (1, n), device=dev)
+                inp = dict(frames=f[:, 1][None], gt=m[:, 1][None], any_new=flag(False),
+                           commit=flag(True), valid=flag(True))
+                probs = eng._chunk_fn(state, obj_valid.contiguous(), False, True, inp)[0]
+                torch.cuda.synchronize()
+        finally:
+            for h in handles:
+                h.remove()
+        return probs, rec.result[0]
+
+    probs1, read1 = one_step(1)
+    probs2, read2 = one_step(2)
+    entry = [(name, d) for name, i, d in calls if i == 0 and d > 0]
+    out = dict(leaf_calls=len(calls), differing=sum(d > 0 for _, _, d in calls),
+               batch_enters=entry[:8], read_max_diff=rows_diff(read2, read1),
+               probs_max_diff=rows_diff(probs2, probs1))
+    log(f"streams: f32 batch variance ({what}), frame 1 of stream 0 alone vs in a batch of "
+        f"2: {out['differing']} of {out['leaf_calls']} leaf-module calls differ; inputs "
+        f"equal, output differs: {[(n, f'{d:.2e}') for n, d in entry[:8]]}; the forward "
+        f"read max|diff| {out['read_max_diff']:.3e}; probabilities max|diff| "
+        f"{out['probs_max_diff']:.3e}")
+    return out
+
+
+class without_cudnn:
+    """cuDNN off inside: PyTorch's own CUDA convolutions run, which compute
+    each sample of a batch alone (im2col and one GEMM per sample), so no
+    convolution's arithmetic depends on the batch size."""
+
+    def __enter__(self):
+        self.was = torch.backends.cudnn.enabled
+        torch.backends.cudnn.enabled = False
+        return self
+
+    def __exit__(self, *exc):
+        torch.backends.cudnn.enabled = self.was
+
+
+def phase_raw(models) -> dict:
+    """run_video_raw against run_video_labels on one uint8 clip with an
+    ignore band, f32: the mismatch share below tests/test_engine_raw.py's
+    2e-3 (host and device normalization may differ by an ulp)."""
+    from rmnet_tpu_torch.config import Config
+    from rmnet_tpu_torch.engine import InferenceEngine
+
+    f32 = InferenceEngine(Config(), *models, memorize_every=MEMORIZE_EVERY,
+                          dtype=torch.float32)
+    T = STREAM_CHECK_T
+    frames, masks, n_objects = make_clip(T, HEIGHT, WIDTH, N_OBJECTS)
+    frames_u8, labels = raw_clip(frames, masks, ignore=True)
+    cst = Config().CONST
+    host = (frames_u8.astype(np.float32) / 255.0 - np.asarray(cst.DATASET_MEAN, np.float32)) \
+        / np.asarray(cst.DATASET_STD, np.float32)
+    onehot = np.stack([labels == k for k in range(N_OBJECTS + 1)], 1).astype(np.float32)
+    ref, _ = counted(f32, lambda: f32.run_video_labels(host, onehot, n_objects), T)
+    got, counts = counted(f32, lambda: f32.run_video_raw(frames_u8, labels, n_objects), T)
+    share = float(np.mean(got != ref))
+    log(f"raw: run_video_raw vs run_video_labels (f32, T={T}, a 255 band): mismatch share "
+        f"{share:.3e} (< 2e-3) {'ok' if share < 2e-3 else 'FAIL'}; forward launches {counts}")
+    if share >= 2e-3:
+        raise AssertionError(f"run_video_raw mismatch share {share}")
+    return dict(mismatch_share=share, launches=counts)
+
+
+TTA_T, TTA_SCALES = 12, (1.0, 0.75)
+
+
+def phase_tta(smi, run) -> dict:
+    eng = run["engine"]
+    frames, masks, n_objects = (a[:TTA_T] for a in run["clip"])
+    test = eng.cfg.TEST
+    saved = (test.FRAME_SCALES, test.FLIP_LR)
+    test.FRAME_SCALES, test.FLIP_LR = TTA_SCALES, True
+    try:
+        t0 = time.perf_counter()
+        (flows, probs), counts = counted(
+            eng, lambda: eng.multi_scale_inference(frames, masks, n_objects), TTA_T,
+            passes=2 * len(TTA_SCALES))
+        wall = time.perf_counter() - t0
+    finally:
+        test.FRAME_SCALES, test.FLIP_LR = saved
+    K = masks.shape[1]
+    ok = (probs.shape == (TTA_T, K, HEIGHT, WIDTH) and flows.shape == (TTA_T, HEIGHT, WIDTH, 2)
+          and np.isfinite(probs).all() and np.isfinite(flows).all()
+          and np.allclose(probs[1:].sum(axis=1), 1.0, atol=1e-3))
+    log(f"tta: multi_scale_inference, scales {TTA_SCALES} and flip, T={TTA_T} bf16: wall "
+        f"{wall:.2f} s (first run: captures included), probabilities {probs.shape} finite and "
+        f"summing to 1, flows {flows.shape}: {'ok' if ok else 'FAIL'}; forward launches "
+        f"{counts} [{smi}]")
+    if not ok:
+        raise AssertionError("multi_scale_inference gave a malformed result")
+    return dict(wall_s=wall, launches=counts)
 
 
 # ------------------------------------------------------------------ train
@@ -1043,7 +1551,83 @@ def phase_train_times(smi, train) -> tuple:
                      fwd_last_read=fwd)
 
 
-def main() -> int:
+# -------------------------------------------------------------------- a/b
+def ab_worker(root) -> dict:
+    """The main path's engine (480x854, 2 objects, memorize_every 5, T=48,
+    bf16, the weights of seed 0) with the package of checkout ``root``,
+    measured by this file's code: the first run, the median of 3 runs of
+    run_video_labels (as phase times) and one profiled run (as phase
+    profile)."""
+    smi = phase_device()
+    sys.path.insert(0, root)
+    from rmnet_tpu_torch.config import Config
+    from rmnet_tpu_torch.engine import InferenceEngine
+    from rmnet_tpu_torch.models.weights import build_models
+
+    T = T_FRAMES
+    frames, masks, n_objects = make_clip(T, HEIGHT, WIDTH, N_OBJECTS)
+    rmnet, tfn = build_models(seed=0)
+    eng = InferenceEngine(Config(), rmnet.state_dict(), tfn.state_dict(),
+                          memorize_every=MEMORIZE_EVERY, dtype=torch.bfloat16)
+
+    def run():
+        return eng.run_video_labels(frames, masks, n_objects)
+
+    first_s = _walls(run, 1)[0]
+    walls = _walls(run, 3)
+    frame_ms = statistics.median(walls) / (T - 1) * 1e3
+    which = "this" if Path(root) == ROOT else "other"
+    prof = profile_device(smi, run, T - 1, "frame", frame_ms, f"profile_ab_{which}.txt")
+    return dict(root=root, frame_ms=frame_ms, fps=1e3 / frame_ms, walls_s=walls,
+                first_run_s=first_s, device_ms_per_frame=prof["busy_ms"],
+                busy=prof["busy_ms"] / frame_ms, kernels_per_frame=prof["kernels_per_unit"])
+
+
+def phase_ab(other, blocks) -> dict:
+    """The engine of this checkout and of checkout ``other`` timed in turns,
+    ``blocks`` blocks of other, this, this, other; each run is ab_worker in
+    a fresh process. Writes build/chip_smoke/engine_ab.json."""
+    smi = phase_device()
+    other = str(Path(other).resolve())
+    if not (Path(other) / "rmnet_tpu_torch" / "engine.py").exists():
+        raise SystemExit(f"chip_smoke: {other} is not a checkout of the repository")
+    runs = []
+    for _ in range(blocks):
+        for root in (other, str(ROOT), str(ROOT), other):
+            proc = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"), "--ab-worker",
+                                   root], cwd=root, capture_output=True, text=True)
+            if proc.returncode != 0:
+                raise AssertionError(f"the engine run in {root} failed:\n{proc.stderr}")
+            runs.append(json.loads(proc.stdout.strip().splitlines()[-1]))
+            log(json.dumps(runs[-1]))
+    summary = {}
+    for name, root in (("other", other), ("this", str(ROOT))):
+        mine = [r for r in runs if r["root"] == root]
+        summary[name] = {k: statistics.median(r[k] for r in mine)
+                         for k in ("frame_ms", "device_ms_per_frame", "busy", "kernels_per_frame")}
+        summary[name]["frame_ms_runs"] = [r["frame_ms"] for r in mine]
+        log(f"ab {name} ({root}): median over {len(mine)} runs {summary[name]} [{smi}]")
+    OUT_DIR.mkdir(parents=True, exist_ok=True)
+    report = dict(card=smi, runs=runs, summary=summary)
+    (OUT_DIR / "engine_ab.json").write_text(json.dumps(report, indent=1))
+    return report
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description="Drive the PyTorch port on one NVIDIA GPU.")
+    ap.add_argument("--ab", metavar="OTHER_CHECKOUT",
+                    help="only time the engine of this checkout and of OTHER_CHECKOUT in turns")
+    ap.add_argument("--blocks", type=int, default=2,
+                    help="with --ab: blocks of other, this, this, other")
+    ap.add_argument("--ab-worker", metavar="CHECKOUT", help=argparse.SUPPRESS)
+    args = ap.parse_args(argv)
+    if args.ab_worker:
+        log(json.dumps(ab_worker(args.ab_worker)))
+        return 0
+    if args.ab:
+        phase_ab(args.ab, args.blocks)
+        return 0
+
     smi = phase_device()
     sys.path.insert(0, str(ROOT))
     from rmnet_tpu_torch.models.weights import build_models
@@ -1058,11 +1642,16 @@ def main() -> int:
                               est_err=run["step_err"])
     fwd_row, report["engine"] = phase_times(smi, run)
     report["profile"] = profile_engine(smi, run, report["engine"]["frame_ms"])
+    report["graphs"] = phase_graphs(models)
+    report["raw"] = phase_raw(models)
+    report["tta"] = phase_tta(smi, run)
     del run
+    gc.collect()  # the engines' graphs and states (an engine's programs refer back to it)
     train = phase_train(models)
     bwd_row, report["train"] = phase_train_times(smi, train)
     by_path = {"engine": fwd_row["launches"], "train": train["launches"]["fwd"]}
     del train
+    report["streams"] = phase_streams(smi, models)
     fwd_row.update(launches=sum(by_path.values()), launches_by_path=by_path)
     bwd_row.update(launches_by_path={"engine": 0, "train": bwd_row["launches"]})
     rows = [fwd_row, bwd_row]

@@ -42,6 +42,10 @@ class Train:
 @dataclass
 class Test:
     MEMORIZE_EVERY: int = 5
+    # test-time augmentation (InferenceEngine.multi_scale_inference): the
+    # left-right flip and the frame scales whose probabilities are averaged
+    FLIP_LR: bool = False
+    FRAME_SCALES: Tuple[float, ...] = (1.0,)
     # bank slots; 0 = AUTO: sized per video from its commit count so the
     # bank never evicts, matching the reference's unbounded bank
     MEMORY_CAPACITY: int = 0

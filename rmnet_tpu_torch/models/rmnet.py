@@ -12,6 +12,9 @@ control flow lives in :class:`RMNetApply`, as in the JAX package:
   * the previous frame always rides one extra, ephemeral slot;
   * keys/values are masked by the /16 regional map, and masked-out valid
     positions keep score 0 and still take softmax mass, as in the reference;
+  * every stream of the batch has its own cursor and flags, all on the
+    device: ``step`` reads no value back to the host, so ``chunk_forward``
+    can be captured in a CUDA graph;
   * ``step`` (inference) writes the ring in place; ``forward_video``
     (training, backprop through time) builds each frame's bank out of place,
     since the memory read saves the bank for its backward.
@@ -186,7 +189,7 @@ def _dense_read(m_key, m_val, q_key, slot_valid):
     mk = m_key.reshape(N, S * hw, Ck).float()
     qk = q_key.reshape(N, hw, Ck).float()
     scores = torch.bmm(mk, qk.transpose(1, 2)) / math.sqrt(Ck)  # (N, M, Q)
-    valid = slot_valid.repeat_interleave(hw, dim=1)
+    valid = slot_valid[:, :, None].expand(N, S, hw).reshape(N, S * hw)
     scores = scores.masked_fill(~valid[..., None], -math.inf)
     p = torch.softmax(scores, dim=1)
     mv = m_val.reshape(N, S * hw, Cv)
@@ -205,14 +208,15 @@ def memory_read(m_key, m_val, q_key, q_val, slot_valid):
     return torch.cat([mem.to(q_val.dtype), q_val], dim=-1), p
 
 
-def _slot_valid(capacity: int, cursor: int, commit: bool, device) -> torch.Tensor:
-    """(capacity + 1,) bool validity of the bank view: a slot is valid below
-    the OLD cursor, the ring slot written this step is excluded (prev rides
-    the ephemeral slot), the ephemeral slot ``capacity`` always is."""
-    idx = torch.arange(capacity + 1, device=device)
-    valid = idx < min(cursor, capacity)
-    if commit:
-        valid &= idx != cursor % capacity
+def _slot_valid(capacity: int, cursor: torch.Tensor, commit: torch.Tensor) -> torch.Tensor:
+    """(B, capacity + 1) bool validity of each stream's bank view, from its
+    OLD cursor (B,) int32 and its commit flag (B,) bool: a slot is valid
+    below the cursor, the ring slot written this step is excluded (prev rides
+    the ephemeral slot), the ephemeral slot ``capacity`` always is
+    (rmnet_tpu/models/rmnet.py:757-762)."""
+    idx = torch.arange(capacity + 1, device=cursor.device)
+    valid = idx < cursor.clamp(max=capacity)[:, None]
+    valid &= ~(commit[:, None] & (idx == (cursor % capacity)[:, None]))
     return valid | (idx == capacity)
 
 
@@ -237,7 +241,7 @@ class VOSState:
     keys: torch.Tensor        # (B, K, S+1, h, w, Ck)
     values: torch.Tensor      # (B, K, S+1, h, w, Cv)
     bboxes: torch.Tensor      # (B, K, S+1, 4) int32
-    cursor: int               # committed slots so far
+    cursor: torch.Tensor      # (B,) int32, committed slots so far per stream
     prev_mask: torch.Tensor   # (B, K, H, W) previous frame's estimated mask
     prev_frame: torch.Tensor  # (B, 3, H, W)
     exist: torch.Tensor       # (B, K) bool, objects revealed so far
@@ -245,6 +249,16 @@ class VOSState:
     @property
     def capacity(self) -> int:
         return self.keys.shape[2] - 1
+
+    def reset_(self, frame0, masks0) -> "VOSState":
+        """Start new videos in place: empty bank, cursors 0, frame 0 and its
+        one-hot masks (B, K, H, W) as the previous frame."""
+        for t in (self.keys, self.values, self.bboxes, self.cursor):
+            t.zero_()
+        self.prev_mask.copy_(masks0)
+        self.prev_frame.copy_(frame0)
+        self.exist.copy_(_present_objects(masks0))
+        return self
 
 
 @dataclasses.dataclass
@@ -324,8 +338,8 @@ class RMNetApply:
         (reference models/rmnet.py:304-383).
 
         frame (B, 3, H, W); att_small (B, K, h, w); mem_keys/values
-        (B, K, S, h, w, C); slot_valid (S,) bool; mem_bboxes (B, K, S, 4),
-        needed by the flash read.
+        (B, K, S, h, w, C); slot_valid (B, S) bool, per stream; mem_bboxes
+        (B, K, S, 4), needed by the flash read.
         """
         B, K, S = mem_keys.shape[:3]
         (frame_p,), pads = pad_divide_by([frame], 16, spatial_axes=(-2, -1))
@@ -340,7 +354,7 @@ class RMNetApply:
         att = att_small[:, 1:].to(k4.dtype)[:, :, None]          # (B, Ko, 1, h, w)
         q_key = (k4[:, None] * att).permute(0, 1, 3, 4, 2).reshape(N, h, w, -1)
         q_val = (v4[:, None] * att).reshape(N, -1, h, w)
-        valid = slot_valid[None].expand(N, S)
+        valid = slot_valid[:, None].expand(B, Ko, S).reshape(N, S)
         # views of the bank (a copy only when B > 1)
         mk = mem_keys[:, 1:].reshape(N, S, h, w, -1)
         mv = mem_values[:, 1:].reshape(N, S, h, w, -1)
@@ -361,43 +375,77 @@ class RMNetApply:
         logit = soft_aggregation(ps, obj_valid)
         return unpad(logit, pads, spatial_axes=(-2, -1))
 
-    def step(self, state: VOSState, frame, flow, gt_mask, any_new: bool,
-             commit: bool, obj_valid) -> Tuple[VOSState, torch.Tensor]:
-        """One timestep of the reference loop (models/rmnet.py:410-450).
+    def step(self, state: VOSState, frame, flow, gt_mask, any_new, commit,
+             obj_valid) -> Tuple[VOSState, torch.Tensor]:
+        """One timestep of the reference loop (models/rmnet.py:410-450) for
+        each stream of the batch (rmnet_tpu/models/rmnet.py:663-802, its
+        per-stream mode; a lockstep batch is the case of equal flags).
 
         frame (B, 3, H, W); flow (B, 2, H, W) backward flow t -> t-1; gt_mask
-        (B, K, H, W) one-hot, read only when ``any_new``; ``commit`` commits
-        frame t-1 to the ring. Returns (new_state, est_mask (B, K, H, W)).
-        The bank tensors of ``state`` are updated in place.
+        (B, K, H, W) one-hot, read only where ``any_new``; any_new (B,) bool;
+        commit (B,) bool commits frame t-1 to the stream's ring slot at
+        ``cursor % capacity``. Returns (new_state, est_mask (B, K, H, W)).
+        The bank tensors of ``state`` are updated in place; nothing is read
+        back to the host.
         """
+        B = frame.shape[0]
         S = state.capacity
         prev_k, prev_v, prev_box = self.memorize(state.prev_frame, state.prev_mask,
                                                  obj_valid)
         # The JAX step builds `concat(bank, prev)` every frame; on the card
         # that copies the whole bank (~200 MB at bf16, 480p, S=32) per frame.
         # Here the bank holds capacity + 1 slots and prev goes into the last
-        # (ephemeral) slot in place.
-        write_pos = state.cursor % S
-        if commit:
-            state.keys[:, :, write_pos] = prev_k
-            state.values[:, :, write_pos] = prev_v
-            state.bboxes[:, :, write_pos] = prev_box
-        state.keys[:, :, S] = prev_k
-        state.values[:, :, S] = prev_v
-        state.bboxes[:, :, S] = prev_box
+        # (ephemeral) slot in place. The ring write is one slot per stream:
+        # a stream that does not commit writes its slot's own content back.
+        pos = (state.cursor % S).long()
+        rows = torch.arange(B, device=pos.device)
+        for buf, item in ((state.keys, prev_k), (state.values, prev_v),
+                          (state.bboxes, prev_box)):
+            keep = commit.view((B,) + (1,) * (item.ndim - 1))
+            buf[rows, :, pos] = torch.where(keep, item, buf[rows, :, pos])
+            buf[:, :, S] = item
 
-        slot_valid = _slot_valid(S, state.cursor, commit, state.keys.device)
+        slot_valid = _slot_valid(S, state.cursor, commit)
         est_mask, exist = self._segment_frame(
             state.prev_mask, state.exist, frame, flow, gt_mask, any_new, obj_valid,
             state.keys, state.values, state.bboxes, slot_valid)
         new_state = dataclasses.replace(
             state,
-            cursor=state.cursor + int(commit),
+            cursor=state.cursor + commit.to(torch.int32),
             prev_mask=est_mask.to(state.prev_mask.dtype),
             prev_frame=frame,
             exist=exist,
         )
         return new_state, est_mask
+
+    def chunk_forward(self, flow_fn, state: VOSState, frames, gt_masks, any_new, commit,
+                      step_valid, obj_valid, flows=None) -> torch.Tensor:
+        """The steps of one chunk of frames (rmnet_tpu/models/rmnet.py:844-918)
+        -> est (C, B, K, H, W).
+
+        frames (C, B, 3, H, W); gt_masks (C, B, K, H, W) one-hot, read only
+        where ``any_new``; any_new, commit, step_valid (C, B) bool, where
+        commit[c] commits the frame before frames[c]; flows (C, B, 2, H, W),
+        or None to take ``flow_fn(frame, prev_frame)`` from the carried
+        previous frame. A step with ``step_valid`` False (padding past a
+        stream's last frame) runs, but leaves that stream's state as it was.
+        Every tensor of ``state`` is updated in place, so that the state can
+        be a CUDA graph's static buffers.
+        """
+        ests = []
+        for c in range(frames.shape[0]):
+            frame, valid = frames[c], step_valid[c]
+            flow = flow_fn(frame, state.prev_frame) if flows is None else flows[c]
+            # a padded step commits nothing, so the bank and cursor stay put
+            new, est = self.step(state, frame, flow, gt_masks[c], any_new[c],
+                                 commit[c] & valid, obj_valid)
+            v = valid[:, None, None, None]
+            state.cursor.copy_(new.cursor)
+            state.prev_mask.copy_(torch.where(v, new.prev_mask, state.prev_mask))
+            state.prev_frame.copy_(torch.where(v, new.prev_frame, state.prev_frame))
+            state.exist.copy_(torch.where(valid[:, None], new.exist, state.exist))
+            ests.append(est)
+        return torch.stack(ests)
 
     def _segment_frame(self, prev_mask, exist, frame, flow, gt_mask, any_new,
                        obj_valid, keys, values, bboxes, slot_valid):
@@ -410,12 +458,11 @@ class RMNetApply:
         logit = self.segment(frame, att_small, keys, values, slot_valid, obj_valid,
                              mem_bboxes=bboxes)
 
-        # new-object injection (models/rmnet.py:436-442)
-        if any_new:
-            newly = _present_objects(gt_mask) & ~exist
-            inj = gt_mask.to(logit.dtype) * NEW_OBJECT_SCALE + NEW_OBJECT_BIAS
-            logit = torch.where(newly[:, :, None, None], inj, logit)
-            exist = exist | newly
+        # new-object injection (models/rmnet.py:436-442), per stream
+        newly = _present_objects(gt_mask) & ~exist & any_new[:, None]
+        inj = gt_mask.to(logit.dtype) * NEW_OBJECT_SCALE + NEW_OBJECT_BIAS
+        logit = torch.where(newly[:, :, None, None], inj, logit)
+        exist = exist | newly
         # suppress objects not revealed yet (models/rmnet.py:444-448)
         logit = torch.where(exist[:, :, None, None], logit,
                             torch.full_like(logit, SUPPRESSED))
@@ -451,6 +498,10 @@ class RMNetApply:
         slots = [None] * capacity                  # committed (k, v, box) per slot
         cursor = 0
         est = [masks[:, 0]]
+
+        def flag(value, dtype=torch.bool):  # one host flag for every stream
+            return torch.full((B,), value, dtype=dtype, device=masks.device)
+
         for t in range(1, T):
             prev = self.memorize(prev_frame, prev_mask, obj_valid)
             write_pos = cursor % capacity
@@ -460,10 +511,11 @@ class RMNetApply:
                       for s in slots]
             keys, values, bboxes = (torch.stack([s[i] for s in filled] + [prev[i]], dim=2)
                                     for i in range(3))
-            slot_valid = _slot_valid(capacity, cursor, bool(commit[t - 1]), masks.device)
+            slot_valid = _slot_valid(capacity, flag(cursor, torch.int32),
+                                     flag(bool(commit[t - 1])))
             est_t, exist = self._segment_frame(
                 prev_mask, exist, frames_c[:, t], flows_c[:, t], masks[:, t],
-                bool(any_new[t]), obj_valid, keys, values, bboxes, slot_valid)
+                flag(bool(any_new[t])), obj_valid, keys, values, bboxes, slot_valid)
             est.append(est_t)
             cursor += int(commit[t - 1])
             prev_mask, prev_frame = est_t, frames_c[:, t]
@@ -471,8 +523,9 @@ class RMNetApply:
 
     def init_state(self, frame0, masks0, capacity: int, dtype=torch.float32,
                    key_dim: int = 128, val_dim: int = 512) -> VOSState:
-        """frame0 (B, 3, H, W), masks0 (B, K, H, W) one-hot -> state with an
-        empty bank of ``capacity`` ring slots plus the ephemeral slot."""
+        """frame0 (B, 3, H, W), masks0 (B, K, H, W) one-hot -> a new state
+        with an empty bank of ``capacity`` ring slots plus the ephemeral slot
+        and a (B,) cursor (rmnet_tpu/models/rmnet.py:805-841)."""
         B, K, H, W = masks0.shape
         lw, uw, lh, uh = divide_pads(H, W, 16)
         h, w = (H + lh + uh) // 16, (W + lw + uw) // 16
@@ -481,8 +534,8 @@ class RMNetApply:
             keys=torch.zeros(B, K, capacity + 1, h, w, key_dim, dtype=dtype, device=dev),
             values=torch.zeros(B, K, capacity + 1, h, w, val_dim, dtype=dtype, device=dev),
             bboxes=torch.zeros(B, K, capacity + 1, 4, dtype=torch.int32, device=dev),
-            cursor=0,
-            prev_mask=masks0.to(dtype),
-            prev_frame=frame0,
-            exist=_present_objects(masks0),
-        )
+            cursor=torch.zeros(B, dtype=torch.int32, device=dev),
+            prev_mask=torch.empty(B, K, H, W, dtype=dtype, device=dev),
+            prev_frame=torch.empty(frame0.shape, dtype=frame0.dtype, device=dev),
+            exist=torch.empty(B, K, dtype=torch.bool, device=dev),
+        ).reset_(frame0, masks0)

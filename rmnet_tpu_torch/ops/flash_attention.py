@@ -101,7 +101,7 @@ def tile_metadata(
     Mp = nt * mt
     dev = slot_valid.device
 
-    pos_valid = slot_valid.repeat_interleave(hw, dim=1)  # (N, M)
+    pos_valid = slot_valid[:, :, None].expand(N, S, hw).reshape(N, M)
     if bboxes is None:
         in_box = pos_valid
     else:
@@ -392,6 +392,14 @@ class _Library:
             const.restype = ctypes.c_int
         if tile() != KERNEL_TILE:
             raise RuntimeError(f"{self.name}: kernel tile size disagrees with KERNEL_TILE")
+        if hasattr(lib, f"{self.name}_init"):
+            # one-time kernel attributes, so that a CUDA graph capture of a
+            # launch records the launch only
+            init = getattr(lib, f"{self.name}_init")
+            init.argtypes, init.restype = [], ctypes.c_int
+            err = init()
+            if err != 0:
+                raise RuntimeError(f"{self.name}_init failed: CUDA error {err}")
         self.lib, self.path = lib, path
         return lib
 
@@ -522,7 +530,10 @@ def flash_read_fwd(m_key, m_val, q_key, slot_valid, order, counts, z):
     """Launch the forward's kernels (main, then merge) on tile metadata from
     :func:`tile_metadata` (at ``KERNEL_TILE``) -> (out (N, h, w, Cv), lse
     (N, h*w) f32). Takes CUDA tensors only and Cv = 512; adds one to
-    ``flash_memory_read.launches`` per call. Allocates the splits' float32
+    ``flash_memory_read.launches`` per call, or to
+    ``flash_memory_read.captured`` when the call is recorded into a CUDA
+    graph (whoever replays the graph counts its launches in
+    ``flash_memory_read.replayed``). Allocates the splits' float32
     scratch, N * splits * Qp * (Cv + 2) * 4 bytes (Qp = Q rounded up to 64,
     splits from :func:`fwd_splits`)."""
     _check_cuda_inputs(m_key, m_val, q_key, slot_valid, order, counts)
@@ -553,7 +564,10 @@ def flash_read_fwd(m_key, m_val, q_key, slot_valid, order, counts, z):
     )
     if err != 0:
         raise RuntimeError(f"flash_read_fwd launch failed: CUDA error {err}")
-    flash_memory_read.launches += 1
+    if torch.cuda.is_current_stream_capturing():
+        flash_memory_read.captured += 1
+    else:
+        flash_memory_read.launches += 1
     return out, lse
 
 
@@ -597,5 +611,7 @@ def flash_read_bwd(m_key, m_val, q_key, slot_valid, order, counts, d_out, lse, d
     return dq, dk_t, dv_t
 
 
-flash_memory_read.launches = 0
+flash_memory_read.launches = 0   # forward calls launched eagerly
+flash_memory_read.captured = 0   # forward calls recorded into CUDA graphs
+flash_memory_read.replayed = 0   # forward launches replayed from CUDA graphs
 flash_read_bwd.launches = 0
