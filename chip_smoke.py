@@ -20,8 +20,9 @@ Phases, in order (each raises on failure; nothing is caught):
   kernel  hold the flash-read forward (main and merge kernels) against its
           plain PyTorch version and against the plain split and merge at the
           wrapper's split count, at the main-path shapes, the streams
-          phase's largest read (16 rows, S=33), the graphs phase's (S=3)
-          and the training read (f32 at 2e-4; bf16 within 1e-2 of the plain output's largest
+          phase's largest read (16 rows, S=33), the eval phase's (10 rows,
+          S=33, f32), the graphs phase's (S=3) and the training read (f32
+          at 2e-4; bf16 within 1e-2 of the plain output's largest
           magnitude; lse at 2e-4); two calls at S33_bf16 and at the f32
           training read give bit-identical out and lse;
   kernel_bwd  hold the backward kernel against its plain version on the same
@@ -67,6 +68,26 @@ Phases, in order (each raises on failure; nothing is caught):
           execute by the design's count (chip_bwd_probe.py counts it on the
           card); one step profiled
           (build/chip_smoke/profile_train.txt);
+  eval    the evaluation and export entry points at 480x854: a synthetic DAVIS
+          tree of three VAL videos (24, 17 and 9 frames; a third object
+          appears in the second at frame 8), a reference-format checkpoint
+          of the random weights and a config file (build/chip_smoke/eval);
+          ``python -m rmnet_tpu_torch.runner --test`` and ``--inference`` as
+          processes, started together: both exit 0, the test run's summary
+          J&F in [0, 1]; then, with TF32 as torch leaves it (the CLI's
+          setting), test_net in process on the engine the CLI builds (f32,
+          K = TEST.N_MAX_OBJECTS + 1 = 11 slots): its scores within 5e-5 of
+          the CLI's printed ones, each video's labels bit-identical to
+          run_video_labels on the same engine, forward launches replayed =
+          chunk steps, the largest read at the eval_N10_S33_f32 kernel case,
+          no video skipped and no batch served again (also at N_STREAMS=2);
+          the sweep's wall, the engine's, the loader's decode and
+          Metrics.get per frame, graph captures and their seconds, the busy
+          share (build/chip_smoke/profile_eval.txt); every PNG of
+          --inference equal to the argmax of multi_scale_inference; the
+          forward timed at a read of the path (from an eager run); the
+          2-stream sweep's labels against the 1-stream sweep's, with TF32
+          on and, on a second engine, off (reported);
   streams lockstep N = 1, 2, 4, 8 at 480x854, T=48, bf16: aggregate FPS and
           peak memory; at f32 (T=16) each batched stream against the stream
           served alone, and a ragged run_video_batch of three lengths with
@@ -272,10 +293,14 @@ KERNEL_CASES = {
     # being written this frame invalid
     "graphs_S3_bf16": (2, 3, 30, 54, torch.bfloat16, 14, (1,)),
     "graphs_S3_f32": (2, 3, 30, 54, torch.float32, 15, (1,)),
+    # the eval phase's read: test_net's f32 engine carries TEST.N_MAX_OBJECTS
+    # = 10 object rows per video, S = the auto capacity 32 plus the ephemeral
+    # slot; a 24-frame video at memorize_every 5 commits 5 or 6 slots
+    "eval_N10_S33_f32": (10, 33, 30, 54, torch.float32, 16, range(6, 32)),
 }
 # inference-only reads that the backward never takes (its plain version
-# would hold tens of GB at 16 rows of S = 33)
-FWD_ONLY_CASES = ("streams_N16_S33_bf16", "streams_N16_S33_f32")
+# would hold tens of GB at 10 or 16 rows of S = 33)
+FWD_ONLY_CASES = ("streams_N16_S33_bf16", "streams_N16_S33_f32", "eval_N10_S33_f32")
 
 
 def read_args(c) -> tuple:
@@ -493,14 +518,16 @@ def make_clip(T, H, W, n_obj, seed=0, appear=0):
 def counted(eng, fn, T, passes=1):
     """``fn()`` with the forward's counts set to 0 -> (its result, counts).
     Raises unless the forward launches replayed from the engine's graphs
-    equal the chunk steps of ``passes`` runs of a T-frame video, padded
-    steps included, and every eager launch was a graph's warm-up."""
+    equal the chunk steps of ``passes`` runs of a T-frame video (of one
+    video of each length, T a sequence), padded steps included, and every
+    eager launch was a graph's warm-up."""
     from rmnet_tpu_torch.ops.flash_attention import flash_memory_read as fmr
 
     fmr.launches = fmr.captured = fmr.replayed = 0
     replays = eng.replays
     result = fn()
-    steps = passes * sum(eng._chunk_plan(T - 1))
+    lengths = [T] if isinstance(T, int) else T
+    steps = passes * sum(sum(eng._chunk_plan(t - 1)) for t in lengths)
     counts = dict(eager=fmr.launches, captured=fmr.captured, replayed=fmr.replayed,
                   chunk_steps=steps, graph_replays=eng.replays - replays)
     if fmr.replayed != steps or fmr.launches != fmr.captured:
@@ -912,9 +939,10 @@ _BUCKETS = (
     ("flash read kernel", ("flash_read_fwd",)),
     ("flash read backward kernels", ("flash_read_bwd",)),
     ("layout transposes", ("nchwToNhwc", "nhwcToNchw")),
+    # before the convolutions: cuDNN's own batch norm kernels (bn_fw_inf_*) say cudnn
+    ("batch norm", ("batch_norm", "bn_fw")),
     ("convolutions", ("xmma", "implicit_gemm", "conv", "cudnn", "cutlass", "gemm", "wgrad",
                       "dgrad")),
-    ("batch norm", ("batch_norm",)),
     ("optimizer (Adam)", ("multi_tensor_apply",)),
     ("host copies", ("Memcpy", "Memset")),
 )
@@ -1551,6 +1579,292 @@ def phase_train_times(smi, train) -> tuple:
                      fwd_last_read=fwd)
 
 
+# ------------------------------------------------------------------- eval
+# the eval phase's synthetic DAVIS tree: three VAL videos at 480x854; video 1
+# gains a third object at EVAL_APPEAR[1], written over its annotations
+EVAL_LENGTHS = (24, 17, 9)
+EVAL_APPEAR = (1, 8)
+EVAL_DIR = OUT_DIR / "eval"
+
+
+class torch_default_tf32:
+    """TF32 as torch leaves it by default inside (cuDNN convolutions may use
+    it, matmuls may not): the setting of the CLI's processes."""
+
+    def __enter__(self):
+        self.was = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = False, True
+        return self
+
+    def __exit__(self, *exc):
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = self.was
+
+
+def eval_files(models) -> tuple:
+    """Writes the tree (build/chip_smoke/eval/davis), a reference-format
+    checkpoint of ``models`` and a config file -> (config path, checkpoint
+    path)."""
+    import shutil
+
+    from rmnet_tpu_torch.data.io import IO
+    from rmnet_tpu_torch.data.synthetic import make_synthetic_davis
+    from rmnet_tpu_torch.utils.checkpoint import save_checkpoint
+    from rmnet_tpu_torch.utils.seg_viz import get_segmentation
+
+    shutil.rmtree(EVAL_DIR, ignore_errors=True)
+    index_path, img_dir, ann_dir, flo_dir = make_synthetic_davis(
+        str(EVAL_DIR / "davis"), n_videos=len(EVAL_LENGTHS), n_frames=EVAL_LENGTHS,
+        hw=(HEIGHT, WIDTH))
+    v, appear = EVAL_APPEAR
+    for t in range(appear, EVAL_LENGTHS[v]):
+        path = os.path.join(ann_dir, f"vid{v:02d}", f"{t:05d}.png")
+        labels = np.array(IO.get(path))
+        labels[200 + 4 * t:320 + 4 * t, 400:580] = 3
+        get_segmentation(None, labels).save(path)
+    pth = save_checkpoint(str(EVAL_DIR), "ckpt-seed0", *models)
+    cfg_path = EVAL_DIR / "cfg.py"
+    cfg_path.write_text(
+        "def configure(cfg):\n"
+        f"    cfg.DATASETS.DAVIS.INDEXING_FILE_PATH = {index_path!r}\n"
+        f"    cfg.DATASETS.DAVIS.IMG_FILE_PATH = {img_dir + '/%s/%05d.jpg'!r}\n"
+        f"    cfg.DATASETS.DAVIS.ANNOTATION_FILE_PATH = {ann_dir + '/%s/%05d.png'!r}\n"
+        f"    cfg.DATASETS.DAVIS.OPTICAL_FLOW_FILE_PATH = {flo_dir + '/%s/%05d.flo'!r}\n"
+        f"    cfg.DIR.OUTPUT_DIR = {str(EVAL_DIR / 'out')!r}\n"
+        "    cfg.CONST.EXP_NAME = 'chip_smoke'\n")
+    return str(cfg_path), pth
+
+
+def run_cli(cfg_path, pth) -> dict:
+    """``python -m rmnet_tpu_torch.runner --test`` and ``--inference`` on the
+    card, started together; each must exit 0. Returns the test run's
+    summary scores and the seconds each took."""
+    procs, t0 = {}, time.perf_counter()
+    for mode in ("--test", "--inference"):
+        procs[mode] = subprocess.Popen(
+            [sys.executable, "-m", "rmnet_tpu_torch.runner", "--cfg", cfg_path, mode,
+             "--weights", pth], cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)
+    out, seconds = {}, {}
+    for mode, proc in procs.items():
+        out[mode] = proc.communicate()[0]
+        seconds[mode] = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"runner {mode} exited {proc.returncode}:\n{out[mode][-4000:]}")
+    (EVAL_DIR / "runner_test.log").write_text(out["--test"])
+    (EVAL_DIR / "runner_inference.log").write_text(out["--inference"])
+    summary = [line for line in out["--test"].splitlines() if "[Test Summary]" in line]
+    skips = [line for line in out["--test"].splitlines() if "Skipped videos = " in line]
+    if len(summary) != 1 or len(skips) != 1:
+        raise AssertionError(f"runner --test printed no summary:\n{out['--test'][-4000:]}")
+    scores = [float(x) for x in re.findall(r"'([0-9.naif+-]+)'", summary[0])]
+    if len(scores) != 3 or not all(0.0 <= x <= 1.0 for x in scores):
+        raise AssertionError(f"runner --test summary outside [0, 1]: {summary[0]}")
+    if not skips[0].rstrip().endswith("Skipped videos = 0, batches served again one video "
+                                      "at a time = 0"):
+        raise AssertionError(f"runner --test skipped videos: {skips[0]}")
+    log(f"eval: runner --test and --inference exited 0 ({seconds['--test']:.1f} s, "
+        f"{seconds['--inference']:.1f} s, run together); {summary[0].split('] ', 1)[-1]}")
+    return dict(scores=scores, seconds=seconds)
+
+
+class _TimedDataset:
+    """A dataset whose __getitem__ (read, decode, transforms) is timed."""
+
+    def __init__(self, dataset):
+        self.dataset, self.seconds = dataset, []
+
+    def __len__(self):
+        return len(self.dataset)
+
+    def __getitem__(self, i):
+        t0 = time.perf_counter()
+        item = self.dataset[i]
+        self.seconds.append(time.perf_counter() - t0)
+        return item
+
+
+class _Captures:
+    """Times each CUDA graph the engine captures while inside (the chunk
+    programs' construction: warm-up and capture)."""
+
+    def __enter__(self):
+        import rmnet_tpu_torch.engine as engine_mod
+
+        self.mod, self.real, self.seconds = engine_mod, engine_mod._ChunkProgram, []
+        captures = self
+
+        class Timed(self.real):
+            def __init__(self, *args, **kwargs):
+                t0 = time.perf_counter()
+                super().__init__(*args, **kwargs)
+                if self.graph is not None:
+                    captures.seconds.append(time.perf_counter() - t0)
+
+        engine_mod._ChunkProgram = Timed
+        return self
+
+    def __exit__(self, *exc):
+        self.mod._ChunkProgram = self.real
+
+
+class _Served:
+    """An engine wrapper that keeps the inputs and labels of each video that
+    run_video_labels or run_video_batch serves; the rest is the engine's."""
+
+    def __init__(self, engine):
+        self._engine, self.videos = engine, []
+
+    def run_video_labels(self, frames, masks, n_objects):
+        labels = self._engine.run_video_labels(frames, masks, n_objects)
+        self.videos.append(((frames, masks, n_objects), labels))
+        return labels
+
+    def run_video_batch(self, videos):
+        outs = self._engine.run_video_batch(videos)
+        self.videos.extend(zip([tuple(v) for v in videos], outs))
+        return outs
+
+    def __getattr__(self, name):
+        return getattr(self._engine, name)
+
+
+def eval_sweep(cfg, eng, n_streams=1):
+    """One test_net sweep over the tree through a wrapper of ``eng``, its
+    loader's dataset timed -> (metrics, EvalStats, wrapper, timed dataset,
+    wall seconds). Raises if a video was skipped or a batch served again."""
+    from rmnet_tpu_torch.data import DataLoader, DatasetCollector, DatasetSubset
+    from rmnet_tpu_torch.test import EvalStats, test_net
+
+    cfg.TEST.N_STREAMS = n_streams
+    ds = _TimedDataset(DatasetCollector.get_dataset(cfg, "DAVIS", DatasetSubset.VAL))
+    loader = DataLoader(ds, n_workers=cfg.CONST.N_WORKERS)
+    served, stats = _Served(eng), EvalStats()
+    t0 = time.perf_counter()
+    metrics = test_net(cfg, test_data_loader=loader, engine=served, stats=stats)
+    wall = time.perf_counter() - t0
+    if stats.skipped or stats.batch_fallbacks or stats.scored != len(EVAL_LENGTHS):
+        raise AssertionError(f"eval sweep (N_STREAMS={n_streams}): {stats}")
+    return metrics, stats, served, ds, wall
+
+
+def phase_eval(smi, models) -> dict:
+    """The evaluation and export entry points on the card: the CLI's --test
+    and --inference as processes, then test_net in process against the
+    engine, the PNGs against multi_scale_inference, the sweep's times."""
+    from rmnet_tpu_torch.config import Config
+    from rmnet_tpu_torch.data.io import IO
+    from rmnet_tpu_torch.test import engine_from_cfg
+
+    cfg_path, pth = eval_files(models)
+    cli = run_cli(cfg_path, pth)
+    n_frames = sum(EVAL_LENGTHS)
+    with torch_default_tf32():
+        cfg = Config.from_file(cfg_path)
+        cfg.CONST.WEIGHTS = pth
+        eng = engine_from_cfg(cfg)
+        # the first sweep captures the chunk programs; its reads are recorded
+        with _Captures() as caps, _Record("flash_memory_read") as rec:
+            (metrics, _, served, _, cold_s), _ = counted(
+                eng, lambda: eval_sweep(cfg, eng), list(EVAL_LENGTHS))
+        shapes = {tuple(c["args"][0][0].shape[:4]) for c in rec.calls}
+        del rec
+        case = KERNEL_CASES["eval_N10_S33_f32"]
+        if max(shapes, key=lambda s: s[1]) != case[:4]:
+            raise AssertionError(f"the eval reads {shapes} no longer reach the kernel "
+                                 f"case eval_N10_S33_f32 {case[:4]}")
+        got = metrics.state_dict()
+        if any(abs(got[k] - x) > 5e-5 for k, x in zip(("J-Mean", "F-Mean", "JF-Mean"),
+                                                        cli["scores"])):
+            raise AssertionError(f"test_net in process {got} against the CLI's {cli['scores']}")
+        # test_net's labels against the engine's own run of each video
+        for (frames, masks, n_objects), labels in served.videos:
+            again = eng.run_video_labels(frames, masks, n_objects)
+            if not np.array_equal(labels, again):
+                raise AssertionError("test_net's labels differ from run_video_labels")
+        # the steady sweep: nothing captured
+        (_, stats, _, ds, wall), launches = counted(
+            eng, lambda: eval_sweep(cfg, eng), list(EVAL_LENGTHS))
+        sweep_ms = wall / n_frames * 1e3
+        prof = profile_device(smi, lambda: eval_sweep(cfg, eng), n_frames, "frame", sweep_ms,
+                              "profile_eval.txt")
+        # two streams: the 24- and 17-frame videos as one batch, then the 9;
+        # the first sweep captures the batch's programs
+        two = [max(EVAL_LENGTHS[:2]), EVAL_LENGTHS[2]]
+        with _Captures() as caps2:
+            (metrics2, _, served2, _, _), _ = counted(
+                eng, lambda: eval_sweep(cfg, eng, n_streams=2), two)
+        (_, stats2, _, _, wall2), launches2 = counted(
+            eng, lambda: eval_sweep(cfg, eng, n_streams=2), two)
+        # the PNGs of --inference against multi_scale_inference on this engine
+        out_root = EVAL_DIR / "out" / "benchmark" / "chip_smoke" / "DAVIS"
+        pngs = sorted(out_root.glob("*/*.png"))
+        if len(pngs) != n_frames:
+            raise AssertionError(f"{len(pngs)} PNGs under {out_root}, want {n_frames}")
+        for i, ((frames, masks, n_objects), _) in enumerate(served.videos):
+            (_, probs), _ = counted(
+                eng, lambda: eng.multi_scale_inference(frames, masks, n_objects),
+                EVAL_LENGTHS[i])
+            png = np.stack([np.array(IO.get(str(out_root / f"vid{i:02d}" / f"{t:05d}.png")))
+                            for t in range(EVAL_LENGTHS[i])])
+            if not np.array_equal(png, probs.argmax(axis=1)):
+                raise AssertionError(f"the PNGs of vid{i:02d} differ from the engine's labels")
+        # the first video's last read, from its chunk function run eagerly
+        # (a graph's own tensors share the pool with the other graphs')
+        frames, masks, n_objects = served.videos[0][0]
+        T = len(frames)
+        with _Record("flash_memory_read") as rec:
+            eager_probs(eng, frames, masks.astype(np.float32), n_objects,
+                        eng._capacity_for(T, eng._video_flags(n_objects, T)[1]))
+        args, kwargs = rec.args
+        del rec
+        flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+        fwd = fwd_time_row(dict(zip(("m_key", "m_val", "q_key", "slot_valid", "bboxes"), args),
+                                **kwargs), flush)
+        log_fwd_times(f"the eval path's read at frame {T - 1} of vid00", fwd, smi)
+    # the batch against one stream again with TF32 off in the convolutions
+    # (the other phases' setting), on an engine captured that way
+    eng_off = engine_from_cfg(cfg)
+    one_off = eval_sweep(cfg, eng_off)
+    two_off = eval_sweep(cfg, eng_off, n_streams=2)
+    batch = {}
+    for name, a, b in (("tf32_default", (metrics, served), (metrics2, served2)),
+                       ("tf32_off", one_off[::2], two_off[::2])):
+        batch[name] = dict(label_mismatch=float(np.mean(np.concatenate([
+            (x != y).ravel() for (_, x), (_, y) in zip(a[1].videos, b[1].videos)]))),
+            jf_one=a[0].state_dict()["JF-Mean"], jf_two=b[0].state_dict()["JF-Mean"])
+    del eng_off
+    report = dict(
+        card=smi, tf32="torch defaults: cuDNN convolutions TF32 on, matmuls off",
+        lengths=EVAL_LENGTHS, frames=n_frames, cli=cli, scores=got, read_shapes=sorted(shapes),
+        cold_sweep_s=cold_s, captures_cold=len(caps.seconds), capture_s_cold=caps.seconds,
+        sweep_ms_per_frame=sweep_ms, engine_ms_per_frame=stats.engine_s / n_frames * 1e3,
+        decode_ms_per_frame=sum(ds.seconds) / n_frames * 1e3,
+        metrics_ms_per_frame=stats.metrics_s / n_frames * 1e3, busy=prof["busy_ms"] / sweep_ms,
+        profile=prof, launches=launches, fwd_last_read=fwd, n_streams_2=dict(
+            sweep_ms_per_frame=wall2 / n_frames * 1e3,
+            engine_ms_per_frame=stats2.engine_s / n_frames * 1e3, launches=launches2,
+            captures=len(caps2.seconds), capture_s=caps2.seconds, against_one_stream=batch))
+    log(f"eval: {len(EVAL_LENGTHS)} videos of {EVAL_LENGTHS} frames at {HEIGHT}x{WIDTH}, "
+        f"f32, K = {KERNEL_CASES['eval_N10_S33_f32'][0] + 1} slots, {report['tf32']}: "
+        f"test_net in process {got} (the CLI's within 5e-5), labels bit-identical to "
+        f"run_video_labels, {n_frames} PNGs equal to multi_scale_inference's labels, reads "
+        f"{sorted(shapes)}; 0 videos skipped, 0 batches served again (1 and 2 streams)")
+    log(f"eval: sweep {sweep_ms:.3f} ms/frame (loader, engine and metrics, steady), engine "
+        f"{report['engine_ms_per_frame']:.3f} ms/frame, loader decode "
+        f"{report['decode_ms_per_frame']:.3f} ms/frame ({cfg.CONST.N_WORKERS} threads, "
+        f"beside the engine), Metrics.get {report['metrics_ms_per_frame']:.3f} ms/frame; "
+        f"first sweep {cold_s:.2f} s with {len(caps.seconds)} graph captures taking "
+        f"{sum(caps.seconds):.2f} s; busy {report['busy']:.1%}; forward launches {launches} "
+        f"[{smi}]")
+    log(f"eval: N_STREAMS=2 sweep {report['n_streams_2']['sweep_ms_per_frame']:.3f} ms/frame, "
+        f"engine {report['n_streams_2']['engine_ms_per_frame']:.3f} ms/frame (steady; the "
+        f"sweep before it made {len(caps2.seconds)} captures, {sum(caps2.seconds):.2f} s), "
+        f"forward launches {launches2}; against one stream: " + "; ".join(
+            f"{k}: label mismatch share {v['label_mismatch']:.3e}, JF-Mean {v['jf_two']:.6f} "
+            f"against {v['jf_one']:.6f}" for k, v in batch.items()) + f" [{smi}]")
+    return report
+
+
 # -------------------------------------------------------------------- a/b
 def ab_worker(root) -> dict:
     """The main path's engine (480x854, 2 objects, memorize_every 5, T=48,
@@ -1651,9 +1965,13 @@ def main(argv=None) -> int:
     bwd_row, report["train"] = phase_train_times(smi, train)
     by_path = {"engine": fwd_row["launches"], "train": train["launches"]["fwd"]}
     del train
+    gc.collect()
+    report["eval"] = phase_eval(smi, models)
+    by_path["eval"] = report["eval"]["launches"]["eager"] + report["eval"]["launches"]["replayed"]
+    gc.collect()  # the eval engine's graphs and states
     report["streams"] = phase_streams(smi, models)
     fwd_row.update(launches=sum(by_path.values()), launches_by_path=by_path)
-    bwd_row.update(launches_by_path={"engine": 0, "train": bwd_row["launches"]})
+    bwd_row.update(launches_by_path={"engine": 0, "train": bwd_row["launches"], "eval": 0})
     rows = [fwd_row, bwd_row]
     report["kernels"] = rows
     OUT_DIR.mkdir(parents=True, exist_ok=True)

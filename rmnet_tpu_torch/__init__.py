@@ -1,5 +1,8 @@
 """rmnet_tpu_torch: PyTorch + CUDA port of rmnet_tpu for NVIDIA Hopper.
 
-Imports torch and numpy only: never JAX, never the rmnet_tpu package.
-Entry point: :class:`rmnet_tpu_torch.engine.InferenceEngine`.
+Imports torch, numpy, scipy and Pillow only: never JAX, never the rmnet_tpu
+package. Entry points: :class:`rmnet_tpu_torch.engine.InferenceEngine`,
+:func:`rmnet_tpu_torch.test.test_net`,
+:func:`rmnet_tpu_torch.inference.inference_net`, the CLI ``python -m
+rmnet_tpu_torch.runner`` and :class:`rmnet_tpu_torch.train.Trainer`.
 """

@@ -100,8 +100,9 @@ def from_jax_variables(rm_vars, tfn_vars) -> Tuple[Dict[str, torch.Tensor], Dict
 def load_reference_checkpoint(path: str) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
     """A reference .pth ({tflownet, rmnet, ...}) -> (RMNet, TinyFlowNet) state
     dicts with the ``module.`` prefixes stripped."""
-    ckpt = torch.load(path, map_location="cpu", weights_only=True)
-    return strip_module_prefix(ckpt["rmnet"]), strip_module_prefix(ckpt["tflownet"])
+    from rmnet_tpu_torch.utils.checkpoint import load_weights_auto
+
+    return load_weights_auto(path)[:2]
 
 
 def _init_conv(conv: nn.Module, g: torch.Generator, kaiming: bool) -> None:
