@@ -68,6 +68,27 @@ Phases, in order (each raises on failure; nothing is caught):
           execute by the design's count (chip_bwd_probe.py counts it on the
           card); one step profiled
           (build/chip_smoke/profile_train.txt);
+  train_net  the training entry points on a synthetic DAVIS tree of three
+          480x854 videos of 12 frames (build/chip_smoke/train_net): train_net
+          in process at the reference's TRAIN (B=4, T=3, 3 objects, resize
+          480, 465x465 crops, the default augmentation, REMAT "encoders",
+          flash read, f32 with TF32 as torch defaults it, Adam at 1e-5),
+          'DAVISx4' = 3 batches per epoch, 2 epochs, N_WORKERS=4: finite
+          losses, 0 batches skipped, T-1 forward and T-1 backward launches per
+          step, ckpt-epoch-001/002 and ckpt-best written; BatchTime and
+          DataTime (median over epoch 2), the card's busy share over epoch 2's
+          training loop (build/chip_smoke/profile_train_net.txt), validation
+          seconds per epoch, peak memory, bytes uploaded per batch, the TRAIN
+          pipeline's host time per clip by stage on one thread; the CLI's
+          --test on ckpt-best.pth within 5e-5 of the best in-training
+          validation, run beside the CLI trained for one epoch and stopped by
+          SIGTERM after its first batch (exit 0, ckpt-interrupt.pth at the
+          epoch before), then resumed from that file (it starts at the
+          interrupted epoch with the saved Adam state, exit 0); one timed
+          step each of REMAT "none", "encoders", "step" and of
+          GRAD_ACCUM_STEPS=2 on the train phase's batch (TF32 off), ms and
+          peak memory, each mode's gradient against "none" per tensor within
+          1e-3 (the escape of the train phase), "none" twice as the floor;
   eval    the evaluation and export entry points at 480x854: a synthetic DAVIS
           tree of three VAL videos (24, 17 and 9 frames; a third object
           appears in the second at frame 8), a reference-format checkpoint
@@ -1865,6 +1886,468 @@ def phase_eval(smi, models) -> dict:
     return report
 
 
+# -------------------------------------------------------------- train_net
+# the train_net phase's synthetic DAVIS tree: three 480x854 videos; 4 repeats
+# make 12 training clips, 3 batches of TRAIN.BATCH_SIZE = 4 per epoch
+TN_VIDEOS, TN_FRAMES, TN_REPEAT, TN_EPOCHS = 3, 12, 4, 2
+TN_DIR = OUT_DIR / "train_net"
+REMAT_GRAD_TOL = GRAD_REL_TOL  # each REMAT mode's gradient against "none", per tensor
+
+
+def train_net_files() -> Path:
+    """Writes the tree (build/chip_smoke/train_net/davis) and a config file
+    of the reference's TRAIN at full width over it -> the config's path."""
+    import shutil
+
+    from rmnet_tpu_torch.data.synthetic import make_synthetic_davis
+
+    shutil.rmtree(TN_DIR, ignore_errors=True)
+    index_path, img_dir, ann_dir, flo_dir = make_synthetic_davis(
+        str(TN_DIR / "davis"), n_videos=TN_VIDEOS, n_frames=TN_FRAMES, hw=(HEIGHT, WIDTH))
+    cfg_path = TN_DIR / "cfg.py"
+    cfg_path.write_text(
+        "def configure(cfg):\n"
+        f"    cfg.DATASETS.DAVIS.INDEXING_FILE_PATH = {index_path!r}\n"
+        f"    cfg.DATASETS.DAVIS.IMG_FILE_PATH = {img_dir + '/%s/%05d.jpg'!r}\n"
+        f"    cfg.DATASETS.DAVIS.ANNOTATION_FILE_PATH = {ann_dir + '/%s/%05d.png'!r}\n"
+        f"    cfg.DATASETS.DAVIS.OPTICAL_FLOW_FILE_PATH = {flo_dir + '/%s/%05d.flo'!r}\n"
+        f"    cfg.DATASET.TRAIN_DATASET = ['DAVISx{TN_REPEAT}']\n"
+        f"    cfg.TRAIN.N_EPOCHS = {TN_EPOCHS}\n"
+        "    cfg.TRAIN.CKPT_SAVE_THRESHOLD = -1.0\n"
+        f"    cfg.TEST.TESTING_VIDEOS_INDEXES = {tuple(range(TN_VIDEOS))!r}\n"
+        "    cfg.CONST.N_WORKERS = 4\n"
+        f"    cfg.DIR.OUTPUT_DIR = {str(TN_DIR / 'out')!r}\n")
+    return cfg_path
+
+
+class _TrainLoop:
+    """Replaces train_net's DataLoader and Trainer with ones that keep, on
+    the training loader, the flash read's launches of each step (the
+    counts between two batches handed out), the bytes of each batch and
+    each epoch's loop wall (from the first batch asked for to the end of
+    the last step), and the Trainer that train_net built; and its
+    InferenceEngine with an account of update_weights, so that its
+    validation engine can be checked once train_net has returned."""
+
+    def __init__(self):
+        self.per_step, self.batch_bytes, self.loop_s, self.trainer = [], [], [], None
+        self.val_engine, self.weight_updates = None, 0
+
+    def __enter__(self):
+        import rmnet_tpu_torch.train as train_mod
+        from rmnet_tpu_torch.ops.flash_attention import flash_memory_read, flash_read_bwd
+
+        loop = self
+        self.mod = train_mod
+        self.real = (train_mod.DataLoader, train_mod.Trainer, train_mod.InferenceEngine)
+
+        def counts():
+            return flash_memory_read.launches, flash_read_bwd.launches
+
+        class Loader(train_mod.DataLoader):
+            def __iter__(self):
+                if not self.shuffle:  # the validation loader
+                    yield from super().__iter__()
+                    return
+                t0, before = time.perf_counter(), None
+                for batch in super().__iter__():
+                    if before is not None:
+                        now = counts()
+                        loop.per_step.append((now[0] - before[0], now[1] - before[1]))
+                    loop.batch_bytes.append(sum(a.nbytes for a in batch[2:]))
+                    before = counts()
+                    yield batch
+                if before is not None:  # the last step ran before the loader was asked again
+                    now = counts()
+                    loop.per_step.append((now[0] - before[0], now[1] - before[1]))
+                torch.cuda.synchronize()
+                loop.loop_s.append(time.perf_counter() - t0)
+
+        class Trainer(train_mod.Trainer):
+            def __init__(self, *args, **kwargs):
+                super().__init__(*args, **kwargs)
+                loop.trainer = self
+
+        class Engine(train_mod.InferenceEngine):
+            def __init__(self, *args, **kwargs):
+                super().__init__(*args, **kwargs)
+                loop.val_engine = self
+
+            def update_weights(self, *args, **kwargs):
+                loop.weight_updates += 1
+                return super().update_weights(*args, **kwargs)
+
+        train_mod.DataLoader, train_mod.Trainer, train_mod.InferenceEngine = Loader, Trainer, Engine
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.DataLoader, self.mod.Trainer, self.mod.InferenceEngine = self.real
+
+
+def check_val_engine(cfg, loop, ckpt_dir) -> dict:
+    """train_net's validation engine, which took the last epoch's weights
+    through update_weights under its captured graphs, against fresh engines
+    from that epoch's checkpoint (the same weights) and from epoch 1's (the
+    weights it was built with), on one clip at the validation's 480x854,
+    TF32 as torch defaults it as in train_net: probabilities bit-identical
+    to the first and unlike the second, or raises. Also reads the epoch of
+    ckpt-best.pth."""
+    from rmnet_tpu_torch.engine import InferenceEngine
+    from rmnet_tpu_torch.utils.checkpoint import load_weights_auto
+
+    if loop.val_engine is None or loop.weight_updates != TN_EPOCHS - 1:
+        raise AssertionError(f"train_net's validation engine took {loop.weight_updates} "
+                             f"update_weights, want {TN_EPOCHS - 1} (one engine for the run)")
+    clip = make_clip(TN_FRAMES, HEIGHT, WIDTH, N_OBJECTS)
+    fresh = {}
+    with torch_default_tf32():
+        reused = loop.val_engine.run_video(*clip)
+        for epoch in (TN_EPOCHS, 1):
+            rm_sd, tfn_sd, _ = load_weights_auto(str(ckpt_dir / f"ckpt-epoch-{epoch:03d}.pth"))
+            fresh[epoch] = InferenceEngine(cfg, rm_sd, tfn_sd).run_video(*clip)
+    loop.val_engine = None
+    best_epoch = load_weights_auto(str(ckpt_dir / "ckpt-best.pth"))[2]["epoch"]
+    same = np.array_equal(reused, fresh[TN_EPOCHS])
+    same_labels = np.array_equal(reused.argmax(1), fresh[TN_EPOCHS].argmax(1))
+    changed = not np.array_equal(reused, fresh[1])
+    ok = same and same_labels and changed
+    log(f"train_net: the validation engine after update_weights to epoch {TN_EPOCHS}'s weights "
+        f"against a fresh engine from ckpt-epoch-{TN_EPOCHS:03d}.pth: probabilities "
+        f"bit-identical {same} (max diff {np.abs(reused - fresh[TN_EPOCHS]).max():.3e}), labels "
+        f"equal {same_labels}; unlike epoch 1's {changed} (max diff "
+        f"{np.abs(reused - fresh[1]).max():.3e}); ckpt-best.pth is epoch {best_epoch} "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("train_net's validation engine after update_weights differs from "
+                             "a fresh engine with those weights")
+    return dict(bit_identical=same, labels_equal=same_labels, best_epoch=best_epoch)
+
+
+def loader_stages(cfg, n_clips) -> dict:
+    """Host seconds per training clip by stage, on one thread: each
+    transform of the TRAIN pipeline, and reading and decoding (the rest of
+    the dataset's __getitem__), over ``n_clips`` clips."""
+    from rmnet_tpu_torch.data import DatasetCollector, DatasetSubset
+
+    video = DatasetCollector.get_dataset(cfg, cfg.DATASET.TRAIN_DATASET,
+                                         DatasetSubset.TRAIN).datasets[0][0]
+    stages = {}
+
+    def timed(tr):
+        def call(*args):
+            t0 = time.perf_counter()
+            out = tr(*args)
+            name = type(tr).__name__
+            stages[name] = stages.get(name, 0.0) + time.perf_counter() - t0
+            return out
+        return call
+
+    video.transforms.transformers = [timed(tr) for tr in video.transforms.transformers]
+    t0 = time.perf_counter()
+    for i in range(n_clips):
+        video[i % len(video)]
+    stages["read and decode"] = time.perf_counter() - t0 - sum(stages.values())
+    return {k: v / n_clips for k, v in sorted(stages.items(), key=lambda kv: -kv[1])}
+
+
+def loader_throughput(cfg, n_batches=12) -> dict:
+    """The TRAIN loader alone, CONST.N_WORKERS threads and nothing else
+    working, over one epoch of ``n_batches`` batches of the config's tree
+    (DAVIS repeated to that length): seconds until the first batch, then
+    per batch after it (the steady rate a training loop could draw)."""
+    from rmnet_tpu_torch.data import DataLoader, DatasetCollector, DatasetSubset
+
+    B = cfg.TRAIN.BATCH_SIZE
+    loader = DataLoader(
+        DatasetCollector.get_dataset(cfg, [f"DAVISx{n_batches * B // TN_VIDEOS}"],
+                                     DatasetSubset.TRAIN),
+        batch_size=B, shuffle=True, drop_last=True, seed=cfg.CONST.RNG_SEED,
+        n_workers=cfg.CONST.N_WORKERS)
+    t = [time.perf_counter()]
+    for _ in loader:
+        t.append(time.perf_counter())
+    if len(t) != n_batches + 1:
+        raise AssertionError(f"the loader gave {len(t) - 1} batches, want {n_batches}")
+    return dict(n_batches=n_batches, workers=cfg.CONST.N_WORKERS, first_s=t[1] - t[0],
+                per_batch_s=(t[-1] - t[1]) / (n_batches - 1))
+
+
+def profile_train_steps(smi, cfg, trainer, wall_ms) -> dict:
+    """Device time by kernel over the steps of one epoch of the training
+    loader (decoded first, so only the steps are profiled) on ``trainer``,
+    with TF32 as torch defaults it; the busy share against ``wall_ms``, the
+    unprofiled loop's wall per step."""
+    from rmnet_tpu_torch.data import DataLoader, DatasetCollector, DatasetSubset
+
+    loader = DataLoader(
+        DatasetCollector.get_dataset(cfg, cfg.DATASET.TRAIN_DATASET, DatasetSubset.TRAIN),
+        batch_size=cfg.TRAIN.BATCH_SIZE, shuffle=True, drop_last=True,
+        seed=cfg.CONST.RNG_SEED, n_workers=cfg.CONST.N_WORKERS)
+    batches = [dict(n_objects=n, frames=f, masks=m, flows=fl) for _, n, f, m, fl in loader]
+
+    def steps():
+        for b in batches:
+            trainer.train_step(b)
+
+    with torch_default_tf32():
+        return profile_device(smi, steps, len(batches), "step", wall_ms,
+                              "profile_train_net.txt")
+
+
+def remat_steps(smi, models) -> dict:
+    """One timed step each of TRAIN.REMAT "none", "encoders" and "step" on
+    the same batch (the train phase's), with the peak memory; each mode's
+    gradient against "none" per tensor, and "none" run twice (the floor:
+    cuDNN's backward and scatter_add sum in an order that varies); then one
+    step with GRAD_ACCUM_STEPS = 2 at B = 4. TF32 off (parity checks)."""
+    from rmnet_tpu_torch.config import Config
+    from rmnet_tpu_torch.train import Trainer, make_loss_fn, make_train_step
+
+    cfg = Config()
+    trainer = Trainer(cfg, *models)
+    batch = trainer.to_device(make_train_batch(cfg))
+    params = dict(trainer.rmnet.named_parameters())
+    grads = {}
+    for mode in ("none", "none_again", "encoders", "step"):
+        loss = make_loss_fn(cfg, trainer.apply, trainer.tflownet, mode.split("_")[0])(batch)
+        grads[mode] = dict(zip(params, torch.autograd.grad(loss, list(params.values()))))
+        del loss
+    gmax = max(g.abs().max().item() for g in grads["none"].values())
+
+    def worst_and_bad(a, b):
+        worst, bad = 0.0, []
+        for name in params:
+            err, ref = (a[name] - b[name]).norm().item(), b[name].norm().item()
+            worst = max(worst, err / ref if ref > 0 else (0.0 if err == 0 else math.inf))
+            if err > REMAT_GRAD_TOL * ref and (a[name] - b[name]).abs().max().item() > 1e-7 * gmax:
+                bad.append((name, err / (ref + 1e-30)))
+        return worst, bad
+
+    agree = {}
+    for mode in ("none_again", "encoders", "step"):
+        agree[mode], bad = worst_and_bad(grads[mode], grads["none"])
+        if bad:
+            raise AssertionError(f"REMAT={mode} gradient against 'none': {bad[:8]}")
+    del grads
+    rows = {}
+    for mode, accum in (("none", 1), ("encoders", 1), ("step", 1), ("encoders", 2)):
+        c = Config()
+        c.TRAIN.REMAT, c.TRAIN.GRAD_ACCUM_STEPS = mode, accum
+        step = make_train_step(c, trainer.apply, trainer.tflownet, trainer.optimizer)
+        step(batch, c.TRAIN.LEARNING_RATE)  # warm-up
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        loss = step(batch, c.TRAIN.LEARNING_RATE)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        if not math.isfinite(loss):
+            raise AssertionError(f"REMAT={mode}, GRAD_ACCUM_STEPS={accum}: loss {loss}")
+        name = mode if accum == 1 else f"{mode}, GRAD_ACCUM_STEPS=2"
+        peak = torch.cuda.max_memory_allocated()
+        rows[name] = dict(ms=ms, peak_gb=peak / 1e9, step_gb=(peak - base) / 1e9)
+    log(f"train_net: REMAT gradients against 'none' per tensor (tolerance {REMAT_GRAD_TOL}, "
+        f"escape 1e-7 * {gmax:.3e}): largest ||diff||/||none|| " + ", ".join(
+            f"{k} {v:.3e}" for k, v in agree.items()) + " ('none_again': the floor)")
+    for name, r in rows.items():
+        log(f"train_net: one step at B=4, T=3, 465x465, f32, TF32 off, REMAT={name}: "
+            f"{r['ms']:.3f} ms, peak memory {r['peak_gb']:.2f} GB, {r['step_gb']:.2f} GB of it "
+            f"above what was held before the step [{smi}]")
+    return dict(grad_rel_vs_none=agree, steps=rows)
+
+
+def _wait_for(proc, text, limit_s) -> str:
+    """Lines of ``proc``'s output until one holds ``text`` -> what was read;
+    raises if the process ends first (it is killed after ``limit_s``)."""
+    import threading
+
+    watchdog = threading.Timer(limit_s, proc.kill)
+    watchdog.start()
+    out = []
+    try:
+        for line in proc.stdout:
+            out.append(line)
+            if text in line:
+                return "".join(out)
+    finally:
+        watchdog.cancel()
+    raise AssertionError(f"no {text!r} from the runner (exit {proc.wait()}, killed after "
+                         f"{limit_s} s):\n{''.join(out)[-4000:]}")
+
+
+def interrupt_and_resume(cfg_path) -> dict:
+    """The CLI trains one epoch; SIGTERM after its first batch: exit 0 with
+    ckpt-interrupt.pth at the interrupted epoch - 1; then --weights on that
+    file: it starts at the interrupted epoch with the saved Adam state
+    (the 'Recover completed' line against the file) and exits 0."""
+    import signal
+
+    from rmnet_tpu_torch.train import adam_summary
+
+    cmd = [sys.executable, "-m", "rmnet_tpu_torch.runner", "--cfg", str(cfg_path), "--exp",
+           "interrupt", "--set", "TRAIN.N_EPOCHS=1"]
+    ckpt = TN_DIR / "out" / "checkpoints" / "interrupt" / "ckpt-interrupt.pth"
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True)
+    head = _wait_for(proc, "[Batch 1/", 300)
+    t_signal = time.perf_counter()
+    proc.send_signal(signal.SIGTERM)
+    try:
+        tail = proc.communicate(timeout=120)[0]
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        raise AssertionError("the runner did not exit within 120 s of SIGTERM")
+    first = head + tail
+    (TN_DIR / "runner_interrupt.log").write_text(first)
+    if proc.returncode != 0:
+        raise AssertionError(f"runner exited {proc.returncode} after SIGTERM:\n{first[-4000:]}")
+    stopped = int(re.search(r"Stopped in epoch (\d+)", first).group(1))
+    saved = torch.load(ckpt, map_location="cpu", weights_only=True)
+    if saved["epoch_index"] != stopped - 1:
+        raise AssertionError(f"ckpt-interrupt.pth holds epoch {saved['epoch_index']}, "
+                             f"stopped in {stopped}")
+    summary = adam_summary(saved["optimizer"])
+    exit_s = time.perf_counter() - t_signal
+    proc = subprocess.run(cmd + ["--weights", str(ckpt)], cwd=ROOT, capture_output=True,
+                          text=True, timeout=600)
+    second = proc.stdout + proc.stderr
+    (TN_DIR / "runner_resume.log").write_text(second)
+    if proc.returncode != 0:
+        raise AssertionError(f"resumed runner exited {proc.returncode}:\n{second[-4000:]}")
+    start = re.search(r"\[Epoch (\d+)/\d+\]\[Batch 1/", second)
+    if (f"Current epoch = #{stopped - 1};" not in second or summary not in second
+            or start is None or int(start.group(1)) != stopped):
+        raise AssertionError(f"the resumed run did not start at epoch {stopped} with the "
+                             f"saved {summary}:\n{second[-4000:]}")
+    log(f"train_net: CLI stopped by SIGTERM in epoch {stopped} and exited 0 {exit_s:.1f} s "
+        f"after the signal, ckpt-interrupt.pth at epoch {stopped - 1}; --weights on it resumed "
+        f"at epoch {stopped} with the saved {summary}, exit 0 ({time.perf_counter() - t0:.1f} "
+        f"s for both runs)")
+    return dict(stopped_epoch=stopped, exit_s=exit_s, adam=summary,
+                seconds=time.perf_counter() - t0)
+
+
+def phase_train_net(smi, models) -> tuple:
+    """train_net in process on the synthetic tree (TF32 as torch defaults
+    it, as the CLI runs), the CLI's --test on its ckpt-best.pth, the REMAT
+    modes and accumulation, SIGTERM and resume through the CLI -> (report,
+    forward launches, backward launches of the train_net run)."""
+    import shutil
+
+    from rmnet_tpu_torch.config import Config
+    from rmnet_tpu_torch.ops.flash_attention import flash_memory_read as fmr
+    from rmnet_tpu_torch.ops.flash_attention import flash_read_bwd
+    from rmnet_tpu_torch.train import TrainStats, train_net
+
+    t_phase = time.perf_counter()
+    cfg_path = train_net_files()
+    cfg = Config.from_file(str(cfg_path))
+    tr = cfg.TRAIN
+    T = tr.N_MAX_FRAMES
+    stats = TrainStats()
+    gc.collect()
+    torch.cuda.reset_peak_memory_stats()
+    base_gb = torch.cuda.memory_allocated() / 1e9
+    fmr.launches = fmr.captured = fmr.replayed = flash_read_bwd.launches = 0
+    t0 = time.perf_counter()
+    with torch_default_tf32(), _TrainLoop() as loop:
+        best = train_net(cfg, stats=stats)
+    wall = time.perf_counter() - t0
+    fwd, bwd = fmr.launches + fmr.replayed, flash_read_bwd.launches
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    losses = _losses(cfg)
+    ckpt_dir = TN_DIR / "out" / "checkpoints" / cfg.CONST.EXP_NAME
+    written = sorted(p.name for p in ckpt_dir.glob("*.pth"))
+    n_batches = TN_VIDEOS * TN_REPEAT // tr.BATCH_SIZE
+    if stats.skipped or stats.non_finite or stats.batches != n_batches * TN_EPOCHS:
+        raise AssertionError(f"train_net: {stats}")
+    if not all(math.isfinite(x) for x in losses) or len(losses) != n_batches * TN_EPOCHS:
+        raise AssertionError(f"train_net losses {losses}")
+    if any(s != (T - 1, T - 1) for s in loop.per_step):
+        raise AssertionError(f"read launches per step {loop.per_step}, want ({T - 1}, {T - 1})")
+    want = {"ckpt-epoch-001.pth", "ckpt-epoch-002.pth", "ckpt-best.pth"}
+    if not want <= set(written):
+        raise AssertionError(f"checkpoints {written}, want {sorted(want)}")
+    val_engine = check_val_engine(cfg, loop, ckpt_dir)
+    times = {e: [(b, d) for e_, b, d in stats.batch_times if e_ == e] for e in (1, TN_EPOCHS)}
+    batch_s = statistics.median(b for b, _ in times[TN_EPOCHS])
+    data_s = statistics.median(d for _, d in times[TN_EPOCHS])
+    loop_ms = loop.loop_s[TN_EPOCHS - 1] / n_batches * 1e3
+    prof = profile_train_steps(smi, cfg, loop.trainer, loop_ms)
+    busy = prof["busy_ms"] / loop_ms
+    loop.trainer = None
+    stages = loader_stages(cfg, tr.BATCH_SIZE)
+    rate = loader_throughput(cfg)
+    log(f"train_net: {TN_EPOCHS} epochs of {n_batches} batches (B={tr.BATCH_SIZE}, T={T}, "
+        f"{tr.N_MAX_OBJECTS} objects max, {tr.AUGMENTATION.CROP_HSIZE}x"
+        f"{tr.AUGMENTATION.CROP_WSIZE} crops of 480x854 clips, REMAT={tr.REMAT}, f32, TF32 as "
+        f"torch defaults it) in {wall:.1f} s; losses {[round(x, 5) for x in losses]}; read "
+        f"launches per step (fwd, bwd) {loop.per_step}; 0 batches skipped; wrote {written}")
+    log(f"train_net: epoch {TN_EPOCHS}: BatchTime median {batch_s * 1e3:.3f} ms, DataTime "
+        f"median {data_s * 1e3:.3f} ms; per batch (BatchTime, DataTime) ms: " + "; ".join(
+            f"epoch {e} " + str([(round(b * 1e3, 3), round(d * 1e3, 3)) for b, d in t])
+            for e, t in times.items()) + f"; the training loop {loop.loop_s[TN_EPOCHS - 1]:.3f} "
+        f"s for {n_batches} steps ({loop_ms:.3f} ms per step), the card busy {busy:.1%} of it "
+        f"(device time per step from the profiled steps); validation "
+        f"{[round(x, 3) for x in stats.val_s]} s per epoch ({TN_VIDEOS} videos of {TN_FRAMES} "
+        f"frames); peak memory {peak_gb:.2f} GB ({base_gb:.2f} GB before); upload "
+        f"{statistics.median(loop.batch_bytes) / 1e6:.1f} MB per batch (frames, uint8 masks, "
+        f"flows; pageable) [{smi}]")
+    log(f"train_net: the TRAIN pipeline on one thread, ms per clip of {T} frames: "
+        f"{sum(stages.values()) * 1e3:.1f} in all; " + ", ".join(
+            f"{k} {v * 1e3:.1f}" for k, v in stages.items()) + f"; the loader alone with "
+        f"{rate['workers']} threads over {rate['n_batches']} batches: first after "
+        f"{rate['first_s']:.3f} s, then {rate['per_batch_s'] * 1e3:.3f} ms per batch against "
+        f"the {batch_s * 1e3:.3f} ms BatchTime")
+    # the CLI's --test on ckpt-best.pth against the best in-training validation
+    t1 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "rmnet_tpu_torch.runner", "--cfg", str(cfg_path), "--test",
+         "--weights", str(ckpt_dir / "ckpt-best.pth")], cwd=ROOT, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+    resume = interrupt_and_resume(cfg_path)
+    out = proc.communicate()[0]
+    (TN_DIR / "runner_test.log").write_text(out)
+    if proc.returncode != 0:
+        raise AssertionError(f"runner --test on ckpt-best.pth exited {proc.returncode}:\n"
+                             f"{out[-4000:]}")
+    summary = [line for line in out.splitlines() if "[Test Summary]" in line]
+    scores = [float(x) for x in re.findall(r"'([0-9.naif+-]+)'", summary[-1])]
+    got = best.state_dict()
+    if any(abs(got[k] - x) > 5e-5 for k, x in zip(("J-Mean", "F-Mean", "JF-Mean"), scores)):
+        raise AssertionError(f"runner --test on ckpt-best.pth {scores} against the best "
+                             f"in-training validation {got}")
+    log(f"train_net: runner --test on ckpt-best.pth {scores}, within 5e-5 of the best "
+        f"in-training validation {got} ({time.perf_counter() - t1:.1f} s with the "
+        f"interrupt runs beside it)")
+    shutil.rmtree(TN_DIR / "out" / "checkpoints")  # about 0.5 GB each, weights and Adam state
+    t2 = time.perf_counter()
+    remat = remat_steps(smi, models)
+    log(f"train_net: the REMAT and accumulation steps took {time.perf_counter() - t2:.1f} s; "
+        f"the phase {time.perf_counter() - t_phase:.1f} s")
+    report = dict(card=smi, tf32="torch defaults in train_net; off in the REMAT steps",
+                  wall_s=wall, losses=losses, launches_per_step=loop.per_step,
+                  launches=dict(fwd=fwd, bwd=bwd), checkpoints=written, best=got,
+                  cli_scores=scores, batch_s_median_epoch2=batch_s,
+                  data_s_median_epoch2=data_s, batch_times=stats.batch_times,
+                  loop_s=loop.loop_s, busy=busy,
+                  profile=prof, val_s=stats.val_s, peak_gb=peak_gb,
+                  upload_bytes_per_batch=statistics.median(loop.batch_bytes),
+                  loader_s_per_clip=stages, loader_alone=rate,
+                  val_engine=val_engine, resume=resume, remat=remat)
+    return report, fwd, bwd
+
+
+def _losses(cfg) -> list:
+    """The per-batch losses of a train_net run, from its train summary."""
+    path = Path(cfg.DIR.OUTPUT_DIR) / "logs" / cfg.CONST.EXP_NAME / "train" / "scalars.jsonl"
+    return [r["value"] for r in map(json.loads, path.read_text().splitlines())
+            if r["tag"] == "Loss/Batch"]
+
+
 # -------------------------------------------------------------------- a/b
 def ab_worker(root) -> dict:
     """The main path's engine (480x854, 2 objects, memorize_every 5, T=48,
@@ -1964,14 +2447,19 @@ def main(argv=None) -> int:
     train = phase_train(models)
     bwd_row, report["train"] = phase_train_times(smi, train)
     by_path = {"engine": fwd_row["launches"], "train": train["launches"]["fwd"]}
+    bwd_by_path = {"engine": 0, "train": bwd_row["launches"]}
     del train
+    gc.collect()
+    report["train_net"], by_path["train_net"], bwd_by_path["train_net"] = phase_train_net(
+        smi, models)
     gc.collect()
     report["eval"] = phase_eval(smi, models)
     by_path["eval"] = report["eval"]["launches"]["eager"] + report["eval"]["launches"]["replayed"]
     gc.collect()  # the eval engine's graphs and states
     report["streams"] = phase_streams(smi, models)
     fwd_row.update(launches=sum(by_path.values()), launches_by_path=by_path)
-    bwd_row.update(launches_by_path={"engine": 0, "train": bwd_row["launches"], "eval": 0})
+    bwd_by_path["eval"] = 0
+    bwd_row.update(launches=sum(bwd_by_path.values()), launches_by_path=bwd_by_path)
     rows = [fwd_row, bwd_row]
     report["kernels"] = rows
     OUT_DIR.mkdir(parents=True, exist_ok=True)

@@ -14,12 +14,18 @@ Defaults that differ from the JAX package's by design (DEFAULTS_THAT_DIFFER):
     backward kernel trains on the card; the JAX default is False only
     because its Mosaic kernels cannot compile on a CPU.
 
-Fields whose feature the port does not have yet exist only so that configs
-load; nothing reads them: ``TRAIN.DATA_PARALLEL``, ``TRAIN.BF16``,
-``TRAIN.REMAT``, ``TRAIN.GRAD_ACCUM_STEPS`` and the ``train_net``
-orchestration's fields (frame-step curriculum, checkpoint gating,
-``BACKBONE_WEIGHTS``, ``RESUME_FULL_STATE``, the augmentation), ROADMAP
-queue 1 items 2 and 4.
+Every TRAIN field is read by ``train_net`` and the ``Trainer``
+(rmnet_tpu_torch/train.py), or refused by ``check_train_flags`` when its
+feature is not ported, so that a config is never trained as a different
+model in silence:
+
+  * honoured: the schedule, curriculum, checkpoint gating, augmentation,
+    ``BACKBONE_WEIGHTS``, ``RESUME_FULL_STATE``, ``FLASH_ATTENTION``,
+    ``REMAT`` ("none", "encoders", "step"; another value raises
+    ValueError) and ``GRAD_ACCUM_STEPS`` (it must divide ``BATCH_SIZE``);
+  * refused with NotImplementedError: ``BF16 = True`` and
+    ``USE_BATCH_NORM = True`` (ROADMAP queue 1 item 2),
+    ``DATA_PARALLEL > 1`` (item 4).
 """
 
 from __future__ import annotations

@@ -1,5 +1,6 @@
 """Host-side data pipeline of the port (counterpart of rmnet_tpu/data): IO,
-the test path's transforms, datasets, the loader and the synthetic tree."""
+the transforms (with the native flow-affine op), datasets, the loader, the
+index builders and the synthetic tree."""
 
 from rmnet_tpu_torch.data.datasets import DataLoader, DatasetCollector, DatasetSubset
 from rmnet_tpu_torch.data.io import IO, read_flo, write_flo

@@ -1,13 +1,14 @@
-"""Datasets and the loader of the test path (counterpart of
-rmnet_tpu/data/datasets.py).
+"""Datasets and the loader (counterpart of rmnet_tpu/data/datasets.py;
+reference utils/data_loaders.py).
 
-The reference's indexing-file formats (DAVIS.json, YouTube-VOS meta.json),
-dataset concatenation with the ``'DAVISx5'`` repeat syntax, and a
-thread-pool loader with ordered batches, a bounded in-flight window and
-per-batch seeded RNG streams. The TRAIN subset (frame-window sampling, the
-training transforms) and the static-image datasets (PASCAL VOC, ECSSD,
-MSRA10K, COCO, ADE20K, DAVIS_FRAMES) come with ``train_net`` (ROADMAP
-queue 1 item 2) and raise NotImplementedError until then.
+The reference's indexing-file formats (DAVIS.json, YouTube-VOS meta.json,
+the image sets' id lists), dataset concatenation with the ``'DAVISx5'``
+repeat syntax, and a thread-pool loader with ordered batches, a bounded
+in-flight window and per-batch seeded RNG streams. The TRAIN subset samples
+``TRAIN.N_MAX_FRAMES`` frames ``frame_step`` apart (the curriculum sets the
+step) and runs the training transforms; the static-image sets (PASCAL VOC,
+ECSSD, MSRA10K, COCO, ADE20K, DAVIS_FRAMES) make a clip of one image, drawn
+with replacement, each frame with its own affine.
 """
 
 from __future__ import annotations
@@ -25,9 +26,6 @@ from rmnet_tpu_torch.data import transforms as T
 from rmnet_tpu_torch.data.io import IO
 from rmnet_tpu_torch.data.rng import clear_stream, pyrand, seed_stream
 
-_TRAIN_NOT_PORTED = ("the TRAIN subset and the static-image datasets come with train_net "
-                     "(ROADMAP queue 1 item 2)")
-
 
 @unique
 class DatasetSubset(Enum):
@@ -37,14 +35,17 @@ class DatasetSubset(Enum):
 
 
 class VideoDataset:
-    """Every frame of each video of a file list (reference Dataset,
-    utils/data_loaders.py:28-92, with n_max_frames = 0)."""
+    """A video dataset over a file list (reference Dataset,
+    utils/data_loaders.py:28-92): ``n_max_frames`` frames of each video,
+    or every frame when it is 0."""
 
     def __init__(self, file_list, transforms=None, options=None):
         self.ignore_idx = options["ignore_idx"]
+        self.n_max_frames = options["n_max_frames"]
         self.n_max_objects = options["n_max_objects"]
         self.file_list = file_list
         self.transforms = transforms
+        self.frame_step = 1
 
     def __len__(self):
         return len(self.file_list)
@@ -53,7 +54,7 @@ class VideoDataset:
         video = self.file_list[idx]
         frames, masks, opt_flows, n_objects = [], [], [], []
 
-        for fi in range(video["n_frames"]):
+        for fi in self._get_frame_indexes(video["n_frames"], self.n_max_frames):
             frame = np.array(IO.get(video["frames"][fi]).convert("RGB"))
             frames.append(frame)
             mask = IO.get(video["masks"][fi]) if fi < len(video["masks"]) else None
@@ -81,6 +82,23 @@ class VideoDataset:
 
         return video["name"], np.array(n_objects), frames, masks, opt_flows
 
+    def _get_frame_indexes(self, n_frames, n_max_frames):
+        if n_max_frames == 0:
+            return list(range(n_frames))
+        if n_frames <= n_max_frames:
+            # short videos: drawn with replacement (YouTube-VOS d177e9878a has
+            # 2 frames; reference utils/data_loaders.py:77-79)
+            return pyrand().choices(list(range(n_frames)), k=n_max_frames)
+        begin_ub = n_frames - (n_max_frames - 1) * self.frame_step - 1
+        begin = pyrand().randint(0, begin_ub) if begin_ub > 0 else 0
+        end = begin + (n_max_frames - 1) * self.frame_step
+        if end >= n_frames:
+            return sorted(pyrand().sample(list(range(n_frames)), n_max_frames))
+        return list(range(begin, end + 1, self.frame_step))
+
+    def set_frame_step(self, frame_step):
+        self.frame_step = frame_step
+
 
 class MultipleDatasets:
     """Concatenation with a per-dataset repeat factor; a repeat below 1
@@ -106,6 +124,41 @@ class MultipleDatasets:
             return dataset[(idx - self.indexes[d_idx]) % len(dataset)]
         return dataset[pyrand().randint(0, len(dataset) - 1)]
 
+    def set_frame_step(self, frame_step):
+        for d, _ in self.datasets:
+            d.set_frame_step(frame_step)
+
+
+def _train_video_pipeline(cfg, video_affine=True):
+    aug = cfg.TRAIN.AUGMENTATION
+    deg = aug.AFFINE_VIDEO_DEGREES if video_affine else aug.AFFINE_IMAGE_DEGREES
+    trn = aug.AFFINE_VIDEO_TRANSLATE if video_affine else aug.AFFINE_IMAGE_TRANSLATE
+    scl = aug.AFFINE_VIDEO_SCALE if video_affine else aug.AFFINE_IMAGE_SCALE
+    shr = aug.AFFINE_VIDEO_SHEARS if video_affine else aug.AFFINE_IMAGE_SHEARS
+    return T.Compose([
+        {"callback": "Resize", "parameters": {
+            "size": aug.RESIZE_SIZE, "keep_ratio": aug.RESIZE_KEEP_RATIO}},
+        {"callback": "RandomAffine", "parameters": {
+            "degrees": deg, "translate": trn, "scale": scl, "shears": shr,
+            "frame_fill_color": aug.AFFINE_IMAGE_FILL_COLOR,
+            "mask_fill_color": aug.AFFINE_MASK_FILL_COLOR,
+            "optical_flow_fill_color": aug.AFFINE_FLOW_FILL_COLOR}},
+        {"callback": "RandomCrop", "parameters": {
+            "height": aug.CROP_HSIZE, "width": aug.CROP_WSIZE,
+            "ignore_idx": cfg.CONST.IGNORE_IDX}},
+        {"callback": "ReorganizeObjectID", "parameters": {
+            "ignore_idx": cfg.CONST.IGNORE_IDX}},
+        {"callback": "ToOneHot", "parameters": {
+            "shuffle": True, "n_objects": cfg.TRAIN.N_MAX_OBJECTS}},
+        {"callback": "ColorJitter", "parameters": {
+            "brightness": aug.COLOR_BRIGHTNESS, "contrast": aug.COLOR_CONTRAST,
+            "saturation": aug.COLOR_SATURATION, "hue": aug.COLOR_HUE}},
+        {"callback": "Normalize", "parameters": {
+            "mean": cfg.CONST.DATASET_MEAN, "std": cfg.CONST.DATASET_STD}},
+        {"callback": "RandomPermuteRGB", "parameters": None},
+        {"callback": "ToArrays", "parameters": None},
+    ])
+
 
 def _test_video_pipeline(cfg):
     return T.Compose([
@@ -120,17 +173,25 @@ def _test_video_pipeline(cfg):
 
 
 class _VideoSet:
-    """A video dataset's subsets: TEST and VAL through the test pipeline."""
+    """A video dataset's subsets: TRAIN through the training pipeline,
+    TEST and VAL through the test pipeline."""
 
     SUBSETS = {}
 
     def get_dataset(self, subset: DatasetSubset):
-        if subset == DatasetSubset.TRAIN:
-            raise NotImplementedError(_TRAIN_NOT_PORTED)
         file_list = self._get_file_list(self.cfg, self.SUBSETS[subset.name])
-        return VideoDataset(file_list, _test_video_pipeline(self.cfg), {
+        if subset == DatasetSubset.TRAIN:
+            transforms = _train_video_pipeline(self.cfg)
+            n_max_frames = self.cfg.TRAIN.N_MAX_FRAMES
+            n_max_objects = self.cfg.TRAIN.N_MAX_OBJECTS
+        else:
+            transforms = _test_video_pipeline(self.cfg)
+            n_max_frames = 0
+            n_max_objects = self.cfg.TEST.N_MAX_OBJECTS
+        return VideoDataset(file_list, transforms, {
             "ignore_idx": self.cfg.CONST.IGNORE_IDX,
-            "n_max_objects": self.cfg.TEST.N_MAX_OBJECTS,
+            "n_max_frames": n_max_frames,
+            "n_max_objects": n_max_objects,
         })
 
 
@@ -186,11 +247,95 @@ class YoutubeVosDataset(_VideoSet):
         return file_list
 
 
-class _NotPorted:
-    """A static-image pretraining set of the JAX package."""
+class ImageDataset:
+    """A static-image pretraining set: each image is a video of one frame;
+    drawing frames with replacement and an affine per frame make a clip of
+    ``TRAIN.N_MAX_FRAMES`` (reference utils/data_loaders.py:412-492)."""
+
+    def get_dataset(self, subset: DatasetSubset):
+        if subset != DatasetSubset.TRAIN:
+            raise ValueError("ONLY DatasetSubset.TRAIN is available for ImageDataset.")
+        return VideoDataset(self._get_file_list(self.cfg),
+                            _train_video_pipeline(self.cfg, video_affine=False), {
+            "ignore_idx": self.cfg.CONST.IGNORE_IDX,
+            "n_max_frames": self.cfg.TRAIN.N_MAX_FRAMES,
+            "n_max_objects": self.cfg.TRAIN.N_MAX_OBJECTS,
+        })
+
+    @staticmethod
+    def _simple_list(prefix, ids, img_tpl, ann_tpl):
+        return [{
+            "name": f"{prefix}/{i}",
+            "n_frames": 1,
+            "frames": [img_tpl % i],
+            "masks": [ann_tpl % i],
+        } for i in ids]
+
+
+class _ListedImages(ImageDataset):
+    """An image set indexed by a text file of image ids, one per line."""
+
+    NAME, PREFIX = "", ""
+    # PASCAL VOC's list ends with a newline that the reference drops
+    DROP_LAST_LINE = False
 
     def __init__(self, cfg):
-        raise NotImplementedError(_TRAIN_NOT_PORTED)
+        self.cfg = cfg
+        with open(getattr(cfg.DATASETS, self.NAME).INDEXING_FILE_PATH) as f:
+            self.images = f.read().split("\n")
+        if self.DROP_LAST_LINE:
+            self.images = self.images[:-1]
+
+    def _get_file_list(self, cfg):
+        paths = getattr(cfg.DATASETS, self.NAME)
+        return self._simple_list(self.PREFIX, self.images, paths.IMG_FILE_PATH,
+                                 paths.ANNOTATION_FILE_PATH)
+
+
+class PascalVocDataset(_ListedImages):
+    NAME, PREFIX, DROP_LAST_LINE = "PASCAL_VOC", "VOC", True
+
+
+class Msra10kDataset(_ListedImages):
+    NAME, PREFIX = "MSRA10K", "MSRA10K"
+
+
+class MscocoDataset(_ListedImages):
+    NAME, PREFIX = "MSCOCO", "MSCOCO"
+
+
+class Ade20kDataset(_ListedImages):
+    NAME, PREFIX = "ADE20K", "ADE20K"
+
+
+class EcssdDataset(ImageDataset):
+    """ECSSD: images 0001..N_IMAGES, no index file."""
+
+    def __init__(self, cfg):
+        self.cfg = cfg
+        self.images = ["%04d" % i for i in range(1, cfg.DATASETS.ECSSD.N_IMAGES + 1)]
+
+    def _get_file_list(self, cfg):
+        return self._simple_list("ECSSD", self.images, cfg.DATASETS.ECSSD.IMG_FILE_PATH,
+                                 cfg.DATASETS.ECSSD.ANNOTATION_FILE_PATH)
+
+
+class DavisFrameDataset(ImageDataset):
+    """Every frame of DAVIS's train videos as a still image."""
+
+    def __init__(self, cfg):
+        self.cfg = cfg
+        with open(cfg.DATASETS.DAVIS.INDEXING_FILE_PATH) as f:
+            self.videos = json.load(f)["train"]
+
+    def _get_file_list(self, cfg):
+        paths = cfg.DATASETS.DAVIS
+        return [{
+            "name": f"DAVIS/{v['name']}/{i}",
+            "n_frames": 1,
+            "frames": [paths.IMG_FILE_PATH % (v["name"], i)],
+            "masks": [paths.ANNOTATION_FILE_PATH % (v["name"], i)],
+        } for v in self.videos for i in range(v["n_frames"])]
 
 
 class DatasetCollector:
@@ -199,9 +344,13 @@ class DatasetCollector:
 
     DATASET_LOADER_MAPPING = {
         "DAVIS": DavisDataset,
+        "DAVIS_FRAMES": DavisFrameDataset,
         "YOUTUBE_VOS": YoutubeVosDataset,
-        **{name: _NotPorted for name in ("DAVIS_FRAMES", "PASCAL_VOC", "ECSSD", "MSRA10K",
-                                         "MSCOCO", "ADE20K")},
+        "PASCAL_VOC": PascalVocDataset,
+        "ECSSD": EcssdDataset,
+        "MSRA10K": Msra10kDataset,
+        "MSCOCO": MscocoDataset,
+        "ADE20K": Ade20kDataset,
     }
 
     @classmethod

@@ -17,7 +17,12 @@ control flow lives in :class:`RMNetApply`, as in the JAX package:
     can be captured in a CUDA graph;
   * ``step`` (inference) writes the ring in place; ``forward_video``
     (training, backprop through time) builds each frame's bank out of place,
-    since the memory read saves the bank for its backward.
+    since the memory read saves the bank for its backward (and a
+    rematerialised frame reads it again);
+  * rematerialisation (training, ``torch.utils.checkpoint``, non-reentrant):
+    ``remat_encoders`` recomputes the two ResNet-50 encoders in the backward
+    pass, ``remat`` each whole frame of ``forward_video``
+    (rmnet_tpu/models/rmnet.py:401-430, 958).
 
 Constants 32.0605 / -16.1181 (reference models/rmnet.py:442-448) equal
 log(eps / (1 - eps)) for the aggregation clamp eps = 1e-7.
@@ -33,6 +38,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from rmnet_tpu_torch.models.resnet import ResNet50Trunk
 from rmnet_tpu_torch.ops.aggregation import soft_aggregation
@@ -274,6 +280,17 @@ class RMNetApply:
     # block-sparse flash read through the CUDA kernel (the plain version on
     # the CPU); False reads the whole bank densely
     use_flash_attention: bool = True
+    # training: keep only what a frame carries to the next and recompute each
+    # frame's activations in the backward pass (TRAIN.REMAT = "step")
+    remat: bool = False
+    # training: recompute only the two encoders' interiors in the backward
+    # pass, most of the saved activations (TRAIN.REMAT = "encoders")
+    remat_encoders: bool = False
+
+    def _encoder(self, fn, *args):
+        if self.remat_encoders and torch.is_grad_enabled():
+            return checkpoint(fn, *args, use_reentrant=False)
+        return fn(*args)
 
     def _att(self, mask, out_hw, offset):
         return regional_attention_small(
@@ -299,8 +316,9 @@ class RMNetApply:
         # only the K-1 object slots are encoded; the RGB stem is shared
         Ko = K - 1
         m = self.model
-        r4 = m.encoder_memory.shared(frame_p, masks_p[:, 1:].reshape(B * Ko, Hp, Wp),
-                                     others[:, 1:].reshape(B * Ko, Hp, Wp))
+        r4 = self._encoder(m.encoder_memory.shared, frame_p,
+                           masks_p[:, 1:].reshape(B * Ko, Hp, Wp),
+                           others[:, 1:].reshape(B * Ko, Hp, Wp))
         k4, v4 = m.kv_memory(r4)
         h, w = k4.shape[-2:]
         att, bboxes = self._att(masks_p, (h, w), (0, 0))
@@ -345,7 +363,7 @@ class RMNetApply:
         (frame_p,), pads = pad_divide_by([frame], 16, spatial_axes=(-2, -1))
         Hp, Wp = frame_p.shape[-2:]
         m = self.model
-        r4, r3, r2 = m.encoder_query(frame_p)
+        r4, r3, r2 = self._encoder(m.encoder_query, frame_p)
         k4, v4 = m.kv_query(r4)
         h, w = k4.shape[-2:]
 
@@ -502,20 +520,40 @@ class RMNetApply:
         def flag(value, dtype=torch.bool):  # one host flag for every stream
             return torch.full((B,), value, dtype=dtype, device=masks.device)
 
-        for t in range(1, T):
+        def frame_step(t, cursor, filled, prev_frame, prev_mask, exist, *committed):
+            """Frame t from what frame t-1 carries -> (est_t, exist, k, v, box),
+            the last three frame t-1's memory. ``filled`` flags the ring
+            slots that ``committed`` holds, as (k, v, box) in slot order;
+            when frame t-1 is committed, its memory takes slot
+            ``cursor % capacity``. Everything it reads comes in as an
+            argument, so that a rematerialised frame recomputes the same."""
+            write = cursor % capacity if commit[t - 1] else -1
             prev = self.memorize(prev_frame, prev_mask, obj_valid)
-            write_pos = cursor % capacity
-            if commit[t - 1]:
-                slots[write_pos] = prev
-            filled = [s if s is not None else tuple(torch.zeros_like(x) for x in prev)
-                      for s in slots]
-            keys, values, bboxes = (torch.stack([s[i] for s in filled] + [prev[i]], dim=2)
+            it = iter(committed)
+            bank = [prev if i == write else
+                    (next(it), next(it), next(it)) if filled[i] else
+                    tuple(torch.zeros_like(x) for x in prev) for i in range(capacity)]
+            keys, values, bboxes = (torch.stack([s[i] for s in bank] + [prev[i]], dim=2)
                                     for i in range(3))
             slot_valid = _slot_valid(capacity, flag(cursor, torch.int32),
                                      flag(bool(commit[t - 1])))
             est_t, exist = self._segment_frame(
                 prev_mask, exist, frames_c[:, t], flows_c[:, t], masks[:, t],
                 flag(bool(any_new[t])), obj_valid, keys, values, bboxes, slot_valid)
+            return (est_t, exist) + prev
+
+        for t in range(1, T):
+            write = cursor % capacity if commit[t - 1] else -1
+            filled = tuple(s is not None and i != write for i, s in enumerate(slots))
+            committed = [x for i, s in enumerate(slots) if filled[i] for x in s]
+            args = (t, cursor, filled, prev_frame, prev_mask, exist, *committed)
+            if self.remat and torch.is_grad_enabled():
+                out = checkpoint(frame_step, *args, use_reentrant=False)
+            else:
+                out = frame_step(*args)
+            est_t, exist, prev = out[0], out[1], out[2:]
+            if commit[t - 1]:
+                slots[write] = prev
             est.append(est_t)
             cursor += int(commit[t - 1])
             prev_mask, prev_frame = est_t, frames_c[:, t]

@@ -97,6 +97,27 @@ def from_jax_variables(rm_vars, tfn_vars) -> Tuple[Dict[str, torch.Tensor], Dict
     return _convert(rm_vars, False), _convert(tfn_vars, True)
 
 
+# the encoders' ResNet-50 trunk: the port's names -> torchvision's
+_TORCHVISION_TRUNK = {"conv1": "conv1", "bn1": "bn1", "res2": "layer1", "res3": "layer2",
+                      "res4": "layer3"}
+
+
+def torchvision_trunk_key_map(rmnet_keys) -> Dict[str, str]:
+    """{RMNet state-dict key: torchvision resnet50 key} for both encoders'
+    trunks: torchvision's conv1, bn1, layer1..3 load into conv1, bn1,
+    res2..4 (rmnet_tpu/models/torch_import.py:133-152). The mask stems
+    (``conv1_m``, ``conv1_o``), the heads and BatchNorm's
+    ``num_batches_tracked`` are not mapped."""
+    out = {}
+    for key in rmnet_keys:
+        enc, _, rest = key.partition(".")
+        head, _, tail = rest.partition(".")
+        if (enc in ("encoder_memory", "encoder_query") and head in _TORCHVISION_TRUNK
+                and not key.endswith("num_batches_tracked")):
+            out[key] = f"{_TORCHVISION_TRUNK[head]}.{tail}"
+    return out
+
+
 def load_reference_checkpoint(path: str) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
     """A reference .pth ({tflownet, rmnet, ...}) -> (RMNet, TinyFlowNet) state
     dicts with the ``module.`` prefixes stripped."""

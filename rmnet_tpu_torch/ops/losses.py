@@ -1,4 +1,4 @@
-"""Training losses: Lovász-Softmax, NLL, L1 (counterpart of
+"""Training losses: Lovász-Softmax, NLL, L1, top-k focal NLL (counterpart of
 rmnet_tpu/ops/losses.py; reference models/lovasz_loss.py and torch.nn).
 
 Channels last, as in the JAX package: probabilities (..., C), labels (...).
@@ -65,3 +65,24 @@ def nll_loss(log_probs: torch.Tensor, labels: torch.Tensor,
 def l1_loss(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
     """torch.nn.L1Loss parity: mean absolute error."""
     return (pred - target).abs().mean()
+
+
+def focal_loss(log_probs: torch.Tensor, labels: torch.Tensor, top_k: float,
+               ignore_index: int = 255, step_percent: float = 0.0) -> torch.Tensor:
+    """Top-k (OHEM-like) NLL (rmnet_tpu/ops/losses.py:150-180, reference
+    models/focal_loss.py:12-31): log_probs (B, N, H, W, K) channels last,
+    labels (B, N, H, W) -> the mean of each frame's ``n`` largest per-pixel
+    NLLs, ``n = step_percent * top_k * H*W + (1 - step_percent) * H*W``
+    (``step_percent`` capped at 1). Ignored pixels have NLL 0."""
+    B, N, H, W, K = log_probs.shape
+    step_percent = min(float(step_percent), 1.0)
+    flat_lp = log_probs.reshape(B * N, H * W, K)
+    flat_l = labels.reshape(B * N, H * W)
+    valid = flat_l != ignore_index
+    safe_l = torch.where(valid, flat_l, torch.zeros_like(flat_l)).long()
+    picked = torch.gather(flat_lp, -1, safe_l[..., None])[..., 0]
+    nll = torch.where(valid, -picked, torch.zeros_like(picked))
+    n_pixels = H * W
+    n_top_k = int(step_percent * top_k * n_pixels + (1 - step_percent) * n_pixels)
+    n_top_k = max(min(n_top_k, n_pixels), 1)
+    return torch.topk(nll, n_top_k, dim=-1).values.mean()

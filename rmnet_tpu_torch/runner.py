@@ -1,13 +1,19 @@
 """Command line of the port (counterpart of rmnet_tpu/runner.py, reference
 runner.py:28-109).
 
+    python -m rmnet_tpu_torch.runner --cfg CFG.py --exp NAME [--weights CKPT.pth]
     python -m rmnet_tpu_torch.runner --cfg CFG.py --test --weights CKPT.pth
     python -m rmnet_tpu_torch.runner --cfg CFG.py --inference --weights CKPT.pth
 
-The config is a Python file defining ``configure(cfg)`` or a ``CFG`` dict
-(``--cfg``), then ``--set PATH=VALUE`` overrides. Everything runs on the card
-unless ``--device cpu``. Training and ``--eval-server`` are not ported yet
-(ROADMAP queue 1 items 2 and 3) and exit with a message saying so.
+Without ``--test`` or ``--inference`` it trains (``train_net``); with
+``--weights`` a training run starts from that checkpoint and, when it holds
+the full state (``ckpt-interrupt.pth``, ``ckpt-epoch-*.pth``), resumes its
+epoch and Adam state. SIGTERM or SIGINT stops a training run after its batch
+with ``ckpt-interrupt.pth`` saved, and the process exits 0. The config is a
+Python file defining ``configure(cfg)`` or a ``CFG`` dict (``--cfg``), then
+``--set PATH=VALUE`` overrides. Everything runs on the card unless
+``--device cpu``. ``--eval-server`` is not ported yet (ROADMAP queue 1
+item 3) and exits with a message saying so.
 """
 
 from __future__ import annotations
@@ -59,8 +65,14 @@ def main(argv=None) -> None:
         sys.exit("rmnet_tpu_torch.runner: the eval server is not ported yet "
                  "(ROADMAP queue 1 item 3)")
     if not args.test and not args.inference:
-        sys.exit("rmnet_tpu_torch.runner: training (train_net) is not ported yet "
-                 "(ROADMAP queue 1 item 2); pass --test or --inference")
+        from rmnet_tpu_torch.train import NETWORKS, train_net
+
+        if cfg.TRAIN.NETWORK not in NETWORKS:
+            logging.error("Unknown network %s; TRAIN.NETWORK is one of %s.",
+                          cfg.TRAIN.NETWORK, NETWORKS)
+            sys.exit(1)
+        train_net(cfg, device=args.device)
+        return
     if not cfg.CONST.WEIGHTS:
         logging.error("Please specify the file path of checkpoint (--weights).")
         sys.exit(2)

@@ -155,13 +155,6 @@ def test_repeat_syntax_concatenates(trees):
     assert ds[N_VIDEOS][0] == ds[0][0] == "DAVIS/vid00"
 
 
-@pytest.mark.parametrize("name", ["DAVIS", "PASCAL_VOC", "ECSSD", "DAVIS_FRAMES"])
-def test_training_data_is_not_ported(trees, name):
-    cfg = point_at(Config(), trees[0])
-    with pytest.raises(NotImplementedError, match="queue 1 item 2"):
-        datasets.DatasetCollector.get_dataset(cfg, name, datasets.DatasetSubset.TRAIN)
-
-
 def test_loader_raises_a_worker_error(trees, tmp_path):
     """A file that fails to decode in a worker thread raises on the
     consumer's thread."""

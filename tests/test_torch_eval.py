@@ -202,7 +202,8 @@ def test_checkpoint_round_trip_through_jax(files):
     for got, want in ((rm_sd, want_rm), (tfn_sd, want_tfn)):
         assert got.keys() == want.keys()
         assert all(torch.equal(got[k], want[k]) for k in want)
-    assert extras == {"epoch": 7, "best_metrics": {"JF-Mean": 0.5}}
+    # a weights-only .pth carries no optimizer state
+    assert extras == {"epoch": 7, "best_metrics": {"JF-Mean": 0.5}, "optimizer": None}
 
 
 def test_orbax_directory_is_refused(tmp_path):
@@ -408,9 +409,10 @@ def test_runner_refusals(files):
     assert ex.value.code == 2
     with pytest.raises(AttributeError, match="unknown config field"):
         main(base + ["--test", "--weights", files["pth"], "--set", "TRAIN.NO_SUCH=1"])
+    # training is ported: an unknown network exits 1 (the JAX runner's code)
     with pytest.raises(SystemExit) as ex:
-        main(base)
-    assert "training" in str(ex.value.code) and "queue 1 item 2" in str(ex.value.code)
+        main(base + ["--set", "TRAIN.NETWORK=Bogus"])
+    assert ex.value.code == 1
     with pytest.raises(SystemExit) as ex:
         main(base + ["--eval-server"])
     assert "eval server" in str(ex.value.code) and "queue 1 item 3" in str(ex.value.code)
@@ -422,11 +424,13 @@ def test_entry_points_default_to_the_card(files, monkeypatch):
     from rmnet_tpu_torch.inference import inference_net
     from rmnet_tpu_torch.runner import main
     from rmnet_tpu_torch.test import test_net as port_test_net
+    from rmnet_tpu_torch.train import train_net
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     _, cfg = configs(files, "card")
-    for call in (lambda: port_test_net(cfg), lambda: inference_net(cfg),
-                 lambda: main(["--cfg", files["cfg_file"], "--test", "--weights", files["pth"]])):
+    for call in (lambda: port_test_net(cfg), lambda: inference_net(cfg), lambda: train_net(cfg),
+                 lambda: main(["--cfg", files["cfg_file"], "--test", "--weights", files["pth"]]),
+                 lambda: main(["--cfg", files["cfg_file"]])):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
 

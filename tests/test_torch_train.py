@@ -2,8 +2,8 @@
 
 Same inputs, made with numpy from a seed, go through both packages:
 
-* the losses (Lovász-Softmax, NLL, L1) with ignore-255 pixels: values and
-  gradients at 1e-5;
+* the losses (Lovász-Softmax, NLL, L1, the top-k focal NLL) with ignore-255
+  pixels: values and gradients at 1e-5;
 * the att map's constant-ones straight-through gradient, and the fused
   warp's mask gradient against ``jax.vjp`` of
   ``warped_regional_attention_small`` at 1e-5;
@@ -14,7 +14,9 @@ Same inputs, made with numpy from a seed, go through both packages:
   read), at B=1, T=3, K=3, 48x64, with object 2 revealed at t=2. The port
   runs both its reads (the block-sparse one through the plain versions of
   both kernels). Loss at rtol 1e-5; gradients within 1e-4 relative per
-  tensor, with the absolute escape of tests/test_train_grad_parity.py:149.
+  tensor, with the absolute escape of tests/test_train_grad_parity.py:149;
+  the same at each TRAIN.REMAT mode (the default "encoders", "none",
+  "step") through the flash read.
   Weights are the port's seeded init imported into the JAX package, and the
   gradients are mapped through the same importer;
 * Adam with weight decay over three steps on fixed gradients against the
@@ -112,6 +114,21 @@ def test_l1_loss_matches_jax():
     np.testing.assert_allclose(pt.grad.numpy(), np.asarray(grad_j), rtol=1e-5, atol=1e-8)
 
 
+@pytest.mark.parametrize("step_percent", [0.0, 0.5, 1.0, 2.0])
+def test_focal_loss_matches_jax(step_percent):
+    """Top-k NLL with void pixels: value and gradient at 1e-5; top_k = 0.3,
+    so the kept share falls from every pixel to 30% as the anneal runs."""
+    probs, labels = _loss_inputs(seed=4, shape=(2, 3, 12, 16))
+    lp = np.log(probs)
+    value, grad = _torch_value_grad(
+        lambda p, l: losses.focal_loss(p, l, 0.3, IGNORE, step_percent), lp, labels)
+    value_j, grad_j = jax.value_and_grad(lambda p: jax_losses.focal_loss(
+        p, jnp.asarray(labels), 0.3, IGNORE, step_percent))(jnp.asarray(lp))
+    np.testing.assert_allclose(value, float(value_j), rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(grad, np.asarray(grad_j), rtol=1e-5, atol=1e-7)
+    assert np.all(grad[labels == IGNORE] == 0)
+
+
 # ----------------------------------------------------------------- att map
 def _soft_masks(seed, Bm=2, Km=3, Hm=48, Wm=64):
     rs = np.random.RandomState(seed)
@@ -197,14 +214,13 @@ def step_setup():
     return rmnet, tfn, rm_vars, batch, float(loss_j), _flat(grads_j)
 
 
-@pytest.mark.parametrize("flash", [True, False], ids=["flash", "dense"])
-def test_train_step_gradients_match_jax(step_setup, flash):
+def _check_step_against_jax(step_setup, flash, remat=None):
     rmnet, tfn, rm_vars, batch, loss_j, flat_j = step_setup
     cfg = Config()
     cfg.TRAIN.FLASH_ATTENTION = flash
     apply = RMNetApply(rmnet, memorize_every=cfg.TRAIN.MEMORIZE_EVERY,
                        n_bbox_loose_pixels=LOOSE, use_flash_attention=flash)
-    loss_fn = make_loss_fn(cfg, apply, tfn)
+    loss_fn = make_loss_fn(cfg, apply, tfn, remat)
     rmnet.zero_grad(set_to_none=True)
     loss = loss_fn({k: torch.as_tensor(v) for k, v in batch.items()})
     loss.backward()
@@ -228,6 +244,20 @@ def test_train_step_gradients_match_jax(step_setup, flash):
         if err > 1e-4 * ref and np.abs(gt - gj).max() > 1e-7 * gmax:
             bad.append((name, float(err / (ref + 1e-30))))
     assert not bad, f"{len(bad)} tensors off: {bad[:12]}"
+
+
+@pytest.mark.parametrize("flash", [True, False], ids=["flash", "dense"])
+def test_train_step_gradients_match_jax(step_setup, flash):
+    """The step at TRAIN.REMAT's default ("encoders")."""
+    _check_step_against_jax(step_setup, flash)
+
+
+@pytest.mark.parametrize("remat", ["none", "step"])
+def test_remat_modes_match_jax(step_setup, remat):
+    """The step rematerialised per frame ("step") or not at all ("none"),
+    through the flash read, against the same JAX gradient at the same
+    tolerance (the JAX step is computed without remat)."""
+    _check_step_against_jax(step_setup, True, remat)
 
 
 def test_tinyflownet_video_forward_matches_jax():
