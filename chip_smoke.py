@@ -21,10 +21,10 @@ Phases, in order (each raises on failure; nothing is caught):
           plain PyTorch version and against the plain split and merge at the
           wrapper's split count, at the main-path shapes, the streams
           phase's largest read (16 rows, S=33), the eval phase's (10 rows,
-          S=33, f32), the graphs phase's (S=3) and the training read (f32
-          at 2e-4; bf16 within 1e-2 of the plain output's largest
-          magnitude; lse at 2e-4); two calls at S33_bf16 and at the f32
-          training read give bit-identical out and lse;
+          S=33, f32), the graphs phase's (S=3) and the training read in
+          f32 and bf16 (f32 at 2e-4; bf16 within 1e-2 of the plain output's
+          largest magnitude; lse at 2e-4); two calls at S33_bf16 and at
+          both training reads give bit-identical out and lse;
   kernel_bwd  hold the backward kernel against its plain version on the same
           cases plus the training read (dQ, dK, dV each within 1e-4 of the
           plain gradient's largest magnitude in f32, 1e-2 in bf16); two calls
@@ -89,6 +89,35 @@ Phases, in order (each raises on failure; nothing is caught):
           GRAD_ACCUM_STEPS=2 on the train phase's batch (TF32 off), ms and
           peak memory, each mode's gradient against "none" per tensor within
           1e-3 (the escape of the train phase), "none" twice as the floor;
+  eval_server  the eval server on train_net's checkpoints (TF32 as torch
+          defaults it): eval_server in process on a hard-linked copy of
+          them, two polls and a stop event: every checkpoint scored by one
+          engine (the later ones through update_weights), each within 5e-5
+          of test_net on a fresh engine, the best kept and the rest pruned,
+          the forward launches replayed = the chunk steps of every sweep;
+          seconds per checkpoint, first and later; then ``python -m
+          rmnet_tpu_torch.runner --eval-server --ckpt-dir`` as a process on
+          another copy until its log shows every checkpoint evaluated
+          (within 5e-5 of the in-process scores), stopped by SIGTERM: exit 0;
+  train_bf16  TRAIN.BF16 at the reference TRAIN shape: the bf16 step's loss
+          and gradients against the f32 step's (TF32 off) on the same batch
+          and weights (loss within 2e-3 relative; per tensor max|bf16 - f32|
+          within 0.1 of max|f32|, the median over tensors within 0.04); one
+          step with the counts at 0: T-1 forward and T-1 backward read
+          launches with bf16 keys, values, queries, output and cotangent,
+          every convolution bf16 x bf16 forward and backward (a torch
+          dispatch mode); ms, clips/s and peak memory at bf16, f32 TF32 off
+          and f32 TF32 on; the bf16 step profiled
+          (build/chip_smoke/profile_train_bf16.txt; convolution kernels' ms
+          by the type in their names); both kernels against their plain
+          versions and timed (plain, SDPA, bound) at the bf16 step's last
+          read; trainable BN at bf16: statistics bit-identical across REMAT
+          "none" (twice), "encoders" and "step", all moved, a NaN batch
+          leaving parameters, statistics and moments as they were, the step
+          timed and profiled (build/chip_smoke/profile_train_bn.txt) and at
+          f32; one train_net epoch with TRAIN.BF16 and TRAIN.USE_BATCH_NORM
+          on the train_net tree: finite losses, an f32 checkpoint whose
+          running statistics all moved;
   eval    the evaluation and export entry points at 480x854: a synthetic DAVIS
           tree of three VAL videos (24, 17 and 9 frames; a third object
           appears in the second at frame 8), a reference-format checkpoint
@@ -137,9 +166,11 @@ import json
 import math
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -306,6 +337,8 @@ KERNEL_CASES = {
     # 480x480 (30x30), capacity 2 plus the ephemeral slot, the slot being
     # written this frame invalid
     "train_S3_f32": (12, 3, 30, 30, torch.float32, 8, (1,)),
+    # the same read of the bf16 training step (TRAIN.BF16)
+    "train_S3_bf16": (12, 3, 30, 30, torch.bfloat16, 9, (1,)),
     # the streams phase's largest read: N = 8 lockstep streams of 2 objects
     # (16 rows), S = 33, where fwd_splits takes 6 splits on an H100
     "streams_N16_S33_bf16": (16, 33, 30, 54, torch.bfloat16, 12, range(11, 32)),
@@ -410,8 +443,8 @@ def check_fwd_deterministic(name) -> None:
         raise AssertionError(f"forward kernel {name} is not deterministic: {same}")
 
 
-# the forward's determinism cases: the engine's type and the training read's
-FWD_DETERMINISM_CASES = ("S33_bf16", "train_S3_f32")
+# the forward's determinism cases: the engine's type and the training reads'
+FWD_DETERMINISM_CASES = ("S33_bf16", "train_S3_f32", "train_S3_bf16")
 
 
 def phase_kernel() -> None:
@@ -429,12 +462,8 @@ def phase_kernel() -> None:
 # inputs and the kernel rounds once, so at most half an ulp, max|plain|/256.
 BWD_F32_REL_TOL, BWD_BF16_REL_TOL = 1e-4, 1e-2
 
-# the forward's cases (the f32 training read among them) but the
-# inference-only ones, plus the training read in bf16
-BWD_CASES = {
-    **{k: v for k, v in KERNEL_CASES.items() if k not in FWD_ONLY_CASES},
-    "train_S3_bf16": (12, 3, 30, 30, torch.bfloat16, 9, (1,)),
-}
+# the forward's cases (the training reads among them) but the inference-only ones
+BWD_CASES = {k: v for k, v in KERNEL_CASES.items() if k not in FWD_ONLY_CASES}
 
 
 def bwd_args(c, d_out, out=None, lse=None) -> tuple:
@@ -819,11 +848,12 @@ def kernel_ms(fn, args, prefix, calls=5) -> dict:
     return times
 
 
-def fwd_time_row(c, flush) -> dict:
+def fwd_time_row(c, flush, limit=EXECUTED_LIMIT) -> dict:
     """The forward on read inputs ``c``: kernel, plain and SDPA ms, the bound,
     the ms by CUDA kernel, the useful and the executed work, the split count
-    and the scratch; raises if the executed work passes 1.3x the useful work
-    in bf16."""
+    and the scratch; raises if the executed work passes ``limit`` times the
+    useful work in bf16 (None: reported only; the training read's 30x30
+    query grid pads 900 rows to 960 and its boxes cover parts of tiles)."""
     from rmnet_tpu_torch.ops.flash_attention import (
         _QUERY_BLOCK, flash_memory_read_reference, flash_read_fwd, fwd_splits_for)
 
@@ -845,9 +875,9 @@ def fwd_time_row(c, flush) -> dict:
         by_kernel=kernel_ms(flash_read_fwd, kargs, "flash_read_fwd"),
         shape=dict(N=N, S=S, h=h, w=w, dtype=str(q.dtype)))
     ratio = executed / flops
-    if q.dtype == torch.bfloat16 and ratio > EXECUTED_LIMIT:
+    if q.dtype == torch.bfloat16 and limit is not None and ratio > limit:
         raise AssertionError(f"the forward executes {ratio:.3f}x the useful work, "
-                             f"limit {EXECUTED_LIMIT}")
+                             f"limit {limit}")
     return row
 
 
@@ -1554,8 +1584,6 @@ def phase_train(models) -> dict:
 
 
 def phase_train_times(smi, train) -> tuple:
-    from rmnet_tpu_torch.ops.flash_attention import flash_read_bwd, flash_read_bwd_reference
-
     B = train["batch"]["frames"].shape[0]
     step_ms = statistics.median(train["walls_s"][1:]) * 1e3
     log(f"time train: {step_ms:.3f} ms per step, {B / step_ms * 1e3:.3f} clips/s (median "
@@ -1565,24 +1593,9 @@ def phase_train_times(smi, train) -> tuple:
     flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
     fwd = fwd_time_row(c, flush)
     log_fwd_times(f"the first step's t={train['batch']['frames'].shape[1] - 1} read", fwd, smi)
-    ms = _time_ms(lambda: flash_read_bwd(*args), 20, flush)
-    plain_ms = _time_ms(lambda: flash_read_bwd_reference(*args), 5, flush)
-    library_ms = _time_ms(sdpa_read_bwd(c, args[6]), 20, flush)
-    bound_ms, bound_by, inbox, flops = read_bwd_bound(c)
-    executed = read_bwd_executed_flops(args)
-    N, S, h, w = c["m_key"].shape[:4]
-    order, counts = args[4], args[5]
-    log(f"time flash_read_bwd: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa backward "
-        f"over the dense bank {library_ms:.4f} ms, bound {bound_ms:.4f} ms by {bound_by} "
-        f"({flops / 1e9:.2f} GFLOP over {inbox} in-box valid positions of {N * S * h * w}; "
-        f"{int(counts.sum())} active tiles of {order.numel()}), "
-        f"{flops / ms / 1e9:.2f} TFLOP/s useful, executed by the design's count "
-        f"{executed / 1e9:.2f} GFLOP, launches per step "
-        f"{train['launches']['bwd'] / (1 + TRAIN_STEPS):.0f}; N={N} S={S} h={h} w={w} "
-        f"{c['q_key'].dtype} [{smi}]")
-    by_kernel = kernel_ms(flash_read_bwd, args, "flash_read_bwd")
-    log("time flash_read_bwd by kernel (profiler, L2 warm): " + ", ".join(
-        f"{k} {v:.4f} ms" for k, v in by_kernel.items()) + f" [{smi}]")
+    bwd = bwd_time_row(c, args, flush)
+    log_bwd_times(f"the first step's t={train['batch']['frames'].shape[1] - 1} read", bwd,
+                  train["launches"]["bwd"] / (1 + TRAIN_STEPS), smi)
     trainer, batch = train["trainer"], train["batch"]
     prof = profile_device(smi, lambda: trainer.train_step(batch), 1, "step", step_ms,
                           "profile_train.txt")
@@ -1590,14 +1603,47 @@ def phase_train_times(smi, train) -> tuple:
         name="flash_read_bwd", route="cuda",
         source="rmnet_tpu_torch/csrc/flash_read_bwd.cu",
         replaces="rmnet_tpu/ops/flash_attention.py:335",
-        launches=train["launches"]["bwd"], max_abs_err=train["max_abs_err"], ms=ms,
-        plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
+        launches=train["launches"]["bwd"], max_abs_err=train["max_abs_err"],
+        **{k: bwd[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
     )
     return row, dict(step_ms=step_ms, clips_per_s=B / step_ms * 1e3,
                      walls_s=train["walls_s"], losses=train["losses"],
                      peak_gb=train["peak_gb"], grads=train["grads"], profile=prof,
-                     bwd_kernel_ms=by_kernel, bwd_executed_gflop_by_design=executed / 1e9,
-                     fwd_last_read=fwd)
+                     bwd_kernel_ms=bwd["by_kernel"],
+                     bwd_executed_gflop_by_design=bwd["executed_gflop_by_design"],
+                     fwd_last_read=fwd, bwd_last_read=bwd)
+
+
+def bwd_time_row(c, args, flush) -> dict:
+    """The backward on read inputs ``c`` and kernel arguments ``args``:
+    kernel, plain and SDPA-backward ms, the bound, the ms by CUDA kernel, the
+    useful and the executed work."""
+    from rmnet_tpu_torch.ops.flash_attention import flash_read_bwd, flash_read_bwd_reference
+
+    bound_ms, bound_by, inbox, flops = read_bwd_bound(c)
+    N, S, h, w = c["m_key"].shape[:4]
+    return dict(
+        ms=_time_ms(lambda: flash_read_bwd(*args), 20, flush),
+        plain_ms=_time_ms(lambda: flash_read_bwd_reference(*args), 5, flush),
+        library_ms=_time_ms(sdpa_read_bwd(c, args[6]), 20, flush),
+        bound_ms=bound_ms, bound_by=bound_by, useful_gflop=flops / 1e9,
+        executed_gflop_by_design=read_bwd_executed_flops(args) / 1e9, inbox_positions=inbox,
+        positions=N * S * h * w, active_tiles=int(args[5].sum()), tiles=args[4].numel(),
+        by_kernel=kernel_ms(flash_read_bwd, args, "flash_read_bwd"),
+        shape=dict(N=N, S=S, h=h, w=w, dtype=str(c["q_key"].dtype)))
+
+
+def log_bwd_times(where, row, per_step, smi) -> None:
+    log(f"time flash_read_bwd at {where}: kernel {row['ms']:.4f} ms, plain "
+        f"{row['plain_ms']:.4f} ms, sdpa backward over the dense bank {row['library_ms']:.4f} "
+        f"ms, bound {row['bound_ms']:.4f} ms by {row['bound_by']} ({row['useful_gflop']:.2f} "
+        f"GFLOP over {row['inbox_positions']} in-box valid positions of {row['positions']}; "
+        f"{row['active_tiles']} active tiles of {row['tiles']}), "
+        f"{row['useful_gflop'] / row['ms']:.2f} TFLOP/s useful, executed by the design's count "
+        f"{row['executed_gflop_by_design']:.2f} GFLOP, launches per step {per_step:.0f}; "
+        f"{row['shape']} [{smi}]")
+    log("time flash_read_bwd by kernel (profiler, L2 warm): " + ", ".join(
+        f"{k} {v:.4f} ms" for k, v in row["by_kernel"].items()) + f" [{smi}]")
 
 
 # ------------------------------------------------------------------- eval
@@ -1625,7 +1671,6 @@ def eval_files(models) -> tuple:
     """Writes the tree (build/chip_smoke/eval/davis), a reference-format
     checkpoint of ``models`` and a config file -> (config path, checkpoint
     path)."""
-    import shutil
 
     from rmnet_tpu_torch.data.io import IO
     from rmnet_tpu_torch.data.synthetic import make_synthetic_davis
@@ -1897,7 +1942,6 @@ REMAT_GRAD_TOL = GRAD_REL_TOL  # each REMAT mode's gradient against "none", per 
 def train_net_files() -> Path:
     """Writes the tree (build/chip_smoke/train_net/davis) and a config file
     of the reference's TRAIN at full width over it -> the config's path."""
-    import shutil
 
     from rmnet_tpu_torch.data.synthetic import make_synthetic_davis
 
@@ -2161,7 +2205,6 @@ def remat_steps(smi, models) -> dict:
 def _wait_for(proc, text, limit_s) -> str:
     """Lines of ``proc``'s output until one holds ``text`` -> what was read;
     raises if the process ends first (it is killed after ``limit_s``)."""
-    import threading
 
     watchdog = threading.Timer(limit_s, proc.kill)
     watchdog.start()
@@ -2235,7 +2278,6 @@ def phase_train_net(smi, models) -> tuple:
     it, as the CLI runs), the CLI's --test on its ckpt-best.pth, the REMAT
     modes and accumulation, SIGTERM and resume through the CLI -> (report,
     forward launches, backward launches of the train_net run)."""
-    import shutil
 
     from rmnet_tpu_torch.config import Config
     from rmnet_tpu_torch.ops.flash_attention import flash_memory_read as fmr
@@ -2323,7 +2365,6 @@ def phase_train_net(smi, models) -> tuple:
     log(f"train_net: runner --test on ckpt-best.pth {scores}, within 5e-5 of the best "
         f"in-training validation {got} ({time.perf_counter() - t1:.1f} s with the "
         f"interrupt runs beside it)")
-    shutil.rmtree(TN_DIR / "out" / "checkpoints")  # about 0.5 GB each, weights and Adam state
     t2 = time.perf_counter()
     remat = remat_steps(smi, models)
     log(f"train_net: the REMAT and accumulation steps took {time.perf_counter() - t2:.1f} s; "
@@ -2339,6 +2380,435 @@ def phase_train_net(smi, models) -> tuple:
                   loader_s_per_clip=stages, loader_alone=rate,
                   val_engine=val_engine, resume=resume, remat=remat)
     return report, fwd, bwd
+
+
+# ------------------------------------------------------------- eval_server
+def _hardlink_copy(src: Path, dst: Path) -> Path:
+    """``dst`` as a copy of directory ``src`` made of hard links (a
+    checkpoint is about 0.5 GB), so that pruning it leaves ``src`` whole."""
+    shutil.rmtree(dst, ignore_errors=True)
+    shutil.copytree(src, dst, copy_function=os.link)
+    return dst
+
+
+def _cli_eval_server(cfg_path, ckpt_dir, names, limit_s=300) -> dict:
+    """``python -m rmnet_tpu_torch.runner --eval-server --ckpt-dir`` as a
+    process until its log shows every checkpoint of ``names`` evaluated,
+    then SIGTERM: it must exit 0. Returns each checkpoint's logged scores
+    and the seconds."""
+    import ast
+    import signal
+
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "rmnet_tpu_torch.runner", "--cfg", str(cfg_path),
+         "--eval-server", "--ckpt-dir", str(ckpt_dir), "--poll-seconds", "1"], cwd=ROOT,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    watchdog = threading.Timer(limit_s, proc.kill)
+    watchdog.start()
+    out, scores = [], {}
+    try:
+        for line in proc.stdout:
+            out.append(line)
+            m = re.search(r"Evaluated (\S+): (\{.*\})", line)
+            if m:
+                scores[m.group(1)] = ast.literal_eval(m.group(2))
+            if set(scores) >= set(names):
+                break
+        seen_s = time.perf_counter() - t0
+        proc.send_signal(signal.SIGTERM)
+        out.append(proc.communicate(timeout=120)[0])
+    finally:
+        watchdog.cancel()
+    text = "".join(out)
+    (TN_DIR / "runner_eval_server.log").write_text(text)
+    if set(scores) < set(names) or proc.returncode != 0:
+        raise AssertionError(f"runner --eval-server evaluated {sorted(scores)} of {names}, exit "
+                             f"{proc.returncode}:\n{text[-4000:]}")
+    return dict(scores=scores, seconds_to_all=seen_s, seconds=time.perf_counter() - t0)
+
+
+def phase_eval_server(smi) -> tuple:
+    """The eval server on train_net's checkpoints (TF32 as torch defaults it,
+    as the CLI runs): in process over a copy, two polls, every checkpoint
+    scored within 5e-5 of test_net on it by one engine that took the later
+    ones through update_weights, the best kept and the rest pruned, the
+    forward launches replayed = the chunk steps of every sweep; then the CLI
+    until it has logged each checkpoint, stopped by SIGTERM -> (report,
+    forward launches)."""
+    import rmnet_tpu_torch.eval_server as es
+    from rmnet_tpu_torch.config import Config
+    from rmnet_tpu_torch.ops.flash_attention import flash_memory_read as fmr
+    from rmnet_tpu_torch.test import engine_from_cfg, test_net
+
+    t_phase = time.perf_counter()
+    cfg_path = TN_DIR / "cfg.py"
+    cfg = Config.from_file(str(cfg_path))
+    src = TN_DIR / "out" / "checkpoints" / cfg.CONST.EXP_NAME
+    names = sorted(p.name for p in src.glob("ckpt-*.pth"))
+    engines, per_ckpt = [], []
+    real_engine, real_worker = es.InferenceEngine, es._make_eval_worker
+
+    class Engine(real_engine):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            engines.append(self)
+
+    def timed_worker(*args):
+        work = real_worker(*args)
+
+        def timed(device, path):
+            t0 = time.perf_counter()
+            result = work(device, path)
+            per_ckpt.append((os.path.basename(path), time.perf_counter() - t0))
+            return result
+        return timed
+
+    ckpt_dir = _hardlink_copy(src, TN_DIR / "eval_server_in_process")
+    es.InferenceEngine, es._make_eval_worker = Engine, timed_worker
+    try:
+        with torch_default_tf32():
+            fmr.launches = fmr.captured = fmr.replayed = 0
+            t0 = time.perf_counter()
+            best, scores = es.eval_server(cfg, str(ckpt_dir), poll_seconds=0.5, max_iterations=2,
+                                          stop_event=threading.Event())
+            wall = time.perf_counter() - t0
+            counts = dict(eager=fmr.launches, captured=fmr.captured, replayed=fmr.replayed)
+    finally:
+        es.InferenceEngine, es._make_eval_worker = real_engine, real_worker
+    got = {os.path.basename(p): m.state_dict() for p, m in scores.items()}
+    if sorted(got) != names or len(engines) != 1:
+        raise AssertionError(f"eval_server scored {sorted(got)} of {names} on {len(engines)} "
+                             f"engines, want one engine")
+    steps = len(names) * TN_VIDEOS * sum(engines[0]._chunk_plan(TN_FRAMES - 1))
+    if counts["replayed"] != steps or counts["eager"] != counts["captured"]:
+        raise AssertionError(f"eval_server forward launches {counts}: want replayed == "
+                             f"{steps} chunk steps and eager (warm-up) == captured")
+    kept = sorted(os.listdir(ckpt_dir))
+    if kept != [os.path.basename(best)]:
+        raise AssertionError(f"eval_server kept {kept}, want the best {best} only")
+    engines.clear()
+    # test_net on each checkpoint with a fresh engine
+    worst = 0.0
+    with torch_default_tf32():
+        for name in names:
+            c = Config.from_file(str(cfg_path))
+            c.CONST.WEIGHTS = str(src / name)
+            ref = test_net(c, engine=engine_from_cfg(c)).state_dict()
+            worst = max([worst] + [abs(got[name][k] - v) for k, v in ref.items()])
+    if worst > 5e-5:
+        raise AssertionError(f"eval_server scores against test_net: {worst:.3e} > 5e-5")
+    cli = _cli_eval_server(cfg_path, _hardlink_copy(src, TN_DIR / "eval_server_cli"), names)
+    cli_worst = max(abs(cli["scores"][n][k] - v) for n in names for k, v in got[n].items())
+    if cli_worst > 5e-5:
+        raise AssertionError(f"runner --eval-server scores against in process: {cli_worst:.3e}")
+    order = [n for n, _ in per_ckpt]
+    log(f"eval_server: {len(names)} checkpoints of train_net ({TN_VIDEOS} VAL videos of "
+        f"{TN_FRAMES} frames at {HEIGHT}x{WIDTH}, f32, K = {cfg.TEST.N_MAX_OBJECTS + 1}, TF32 as "
+        f"torch defaults it) in {wall:.2f} s on one engine: seconds per checkpoint in the order "
+        f"scored {[(n, round(t, 3)) for n, t in per_ckpt]} (the first {order[0]} builds the "
+        f"engine and captures its graphs, the others through update_weights); scores within "
+        f"{worst:.3e} of test_net on each (tolerance 5e-5); best {os.path.basename(best)} kept, "
+        f"the rest pruned; forward launches {counts} = {steps} chunk steps; the CLI logged all "
+        f"{len(names)} after {cli['seconds_to_all']:.1f} s, within {cli_worst:.3e} of these, and "
+        f"exited 0 on SIGTERM ({cli['seconds']:.1f} s in all); the phase "
+        f"{time.perf_counter() - t_phase:.1f} s [{smi}]")
+    report = dict(card=smi, checkpoints=names, seconds_per_checkpoint=per_ckpt, wall_s=wall,
+                  scores=got, best=os.path.basename(best), test_net_worst=worst,
+                  launches=counts, chunk_steps=steps, cli=cli, cli_worst=cli_worst)
+    return report, counts["eager"] + counts["replayed"]
+
+
+# -------------------------------------------------------------- train_bf16
+# the bf16 step against the f32 step (TF32 off) on one batch and one set of
+# weights, measured on the H100 at 9e-5 (loss), a median of 1.6% and at worst
+# 3.6% of a tensor's largest gradient: the two differ by bf16's rounding
+BF16_LOSS_REL, BF16_GRAD_REL, BF16_GRAD_MEDIAN = 2e-3, 0.1, 0.04
+
+
+def _loss_grads(trainer, batch) -> tuple:
+    """One forward and backward of the trainer's loss, nothing updated ->
+    (loss, {RMNet parameter name: gradient})."""
+    from rmnet_tpu_torch.train import make_loss_fn
+
+    params = dict(trainer.rmnet.named_parameters())
+    loss = make_loss_fn(trainer.cfg, trainer.apply, trainer.tflownet)(batch)
+    loss = loss[0] if isinstance(loss, tuple) else loss
+    return loss.item(), dict(zip(params, torch.autograd.grad(loss, list(params.values()))))
+
+
+def _time_steps(trainer, batch) -> dict:
+    """1 warm-up and TRAIN_STEPS timed steps: median ms, clips/s, peak GB
+    (absolute, and the steps' own above what was held before them)."""
+    gc.collect()
+    losses = [trainer.train_step(batch)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    walls = []
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        losses.append(trainer.train_step(batch))
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"non-finite training loss: {losses}")
+    ms = statistics.median(walls) * 1e3
+    peak = torch.cuda.max_memory_allocated()
+    return dict(ms=ms, clips_per_s=batch["frames"].shape[0] / ms * 1e3, peak_gb=peak / 1e9,
+                step_gb=(peak - base) / 1e9, walls_s=walls)
+
+
+class _ConvDtypes:
+    """The operand dtypes of every convolution, forward and backward, that
+    runs inside (a torch dispatch mode)."""
+
+    def __enter__(self):
+        from torch.utils._python_dispatch import TorchDispatchMode
+
+        seen = self.seen = {}
+        kinds = {torch.ops.aten.convolution.default: "forward",
+                 torch.ops.aten.convolution_backward.default: "backward"}
+
+        class Mode(TorchDispatchMode):
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                if func in kinds:
+                    key = (kinds[func],) + tuple(str(a.dtype).replace("torch.", "")
+                                                 for a in args[:3] if torch.is_tensor(a))
+                    seen[key] = seen.get(key, 0) + 1
+                return func(*args, **(kwargs or {}))
+
+        self.mode = Mode()
+        self.mode.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        self.mode.__exit__(*exc)
+
+
+def conv_kernels_by_dtype(out_name) -> dict:
+    """Device ms of the convolution bucket's kernels in the profile
+    build/chip_smoke/``out_name`` (bucketed as profile_device buckets them)
+    by the element type their name carries."""
+    by = {}
+    for line in (OUT_DIR / out_name).read_text().splitlines()[1:]:
+        ms, _, _, name = line.split(None, 3)
+        bucket = next((b for b, pats in _BUCKETS if any(p in name for p in pats)), None)
+        if bucket != "convolutions":
+            continue
+        low = name.lower()
+        tag = ("bf16" if "bf16" in low or "bfloat16" in low else "tf32" if "tf32" in low
+               else "f16" if "f16" in low or "half" in low
+               else "f32" if any(t in low for t in ("f32", "float", "sgemm")) else "untagged")
+        by[tag] = by.get(tag, 0.0) + float(ms)
+    return by
+
+
+def bn_steps(smi, models, batch) -> dict:
+    """Trainable BatchNorm at bf16 on the train phase's batch: one step from
+    the same weights at REMAT "none" (twice), "encoders" and "step", whose
+    running statistics must be bit-identical and all moved; the "encoders"
+    step timed and profiled, then a NaN batch that must leave parameters,
+    statistics and Adam's moments as they were; and the step at f32."""
+    from rmnet_tpu_torch.config import Config
+    from rmnet_tpu_torch.train import Trainer
+
+    stats, losses, timed = {}, {}, {}
+    for mode in ("none", "none_again", "encoders", "step"):
+        cfg = Config()
+        cfg.TRAIN.BF16 = cfg.TRAIN.USE_BATCH_NORM = True
+        cfg.TRAIN.REMAT = mode.split("_")[0]
+        trainer = Trainer(cfg, *models)
+        losses[mode] = trainer.train_step(batch)
+        stats[mode] = {k: v.clone() for k, v in trainer.apply.running_stats().items()}
+        if mode == "encoders":
+            timed["bf16"] = _time_steps(trainer, batch)
+            prof = profile_device(smi, lambda: trainer.train_step(batch), 1, "step",
+                                  timed["bf16"]["ms"], "profile_train_bn.txt")
+            before = {k: v.clone() for k, v in trainer.rmnet.state_dict().items()}
+            moments = [v.clone() for st in trainer.optimizer.state.values() for v in st.values()]
+            bad = dict(batch, frames=batch["frames"].clone())
+            bad["frames"][0, 1, 3, 3, 0] = float("nan")
+            nan_loss = trainer.train_step(bad)
+            after = trainer.rmnet.state_dict()
+            kept = (not math.isfinite(nan_loss) and all(torch.equal(after[k], v)
+                                                        for k, v in before.items())
+                    and all(torch.equal(a, b) for a, b in zip(
+                        (v for st in trainer.optimizer.state.values() for v in st.values()),
+                        moments)))
+            if not kept:
+                raise AssertionError(f"a NaN batch (loss {nan_loss}) changed the parameters, "
+                                     f"the running statistics or Adam's moments")
+        del trainer
+        gc.collect()
+    ref = stats["none"]
+    diff = {m: max((stats[m][k] - v).abs().max().item() for k, v in ref.items())
+            for m in ("none_again", "encoders", "step")}
+    moved = sum(not torch.equal(v, models[0][k]) for k, v in ref.items())
+    if any(diff.values()) or len({*losses.values()}) != 1 or moved != len(ref):
+        raise AssertionError(f"trainable BN: statistics against REMAT 'none' {diff}, losses "
+                             f"{losses}, {moved} of {len(ref)} statistics moved")
+    cfg = Config()
+    cfg.TRAIN.USE_BATCH_NORM = True
+    trainer = Trainer(cfg, *models)
+    timed["f32, TF32 off"] = _time_steps(trainer, batch)
+    del trainer
+    gc.collect()
+    bn_share = prof["buckets_ms"]["batch norm"] / prof["busy_ms"]
+    log(f"train_bf16: trainable BN (bf16): {len(ref)} running statistics, all moved, "
+        f"bit-identical across REMAT 'none' (twice), 'encoders' and 'step' (max diff {diff}), "
+        f"losses {losses}; a NaN batch left parameters, statistics and moments as they were; "
+        f"step (REMAT 'encoders') {timed['bf16']['ms']:.3f} ms at bf16, batch norm "
+        f"{bn_share:.1%} of its device time, {timed['f32, TF32 off']['ms']:.3f} ms at f32 TF32 "
+        f"off; peak {timed['bf16']['peak_gb']:.2f} / {timed['f32, TF32 off']['peak_gb']:.2f} GB "
+        f"[{smi}]")
+    return dict(times=timed, remat_stat_diff=diff, losses=losses, profile=prof,
+                bn_share=bn_share)
+
+
+def train_net_bf16_bn(smi) -> tuple:
+    """One train_net epoch with TRAIN.BF16 and TRAIN.USE_BATCH_NORM on the
+    train_net phase's tree: finite losses, no batch skipped, and an f32
+    ckpt-epoch-001.pth whose running statistics moved -> (report, forward
+    launches, backward launches)."""
+    from rmnet_tpu_torch.config import Config
+    from rmnet_tpu_torch.models.weights import build_models
+    from rmnet_tpu_torch.ops.flash_attention import flash_memory_read as fmr
+    from rmnet_tpu_torch.ops.flash_attention import flash_read_bwd
+    from rmnet_tpu_torch.train import TrainStats, train_net
+    from rmnet_tpu_torch.utils.checkpoint import load_weights_auto
+
+    cfg = Config.from_file(str(TN_DIR / "cfg.py"))
+    cfg.TRAIN.BF16 = cfg.TRAIN.USE_BATCH_NORM = True
+    cfg.TRAIN.N_EPOCHS, cfg.CONST.EXP_NAME = 1, "bf16_bn"
+    stats = TrainStats()
+    fmr.launches = fmr.captured = fmr.replayed = flash_read_bwd.launches = 0
+    t0 = time.perf_counter()
+    with torch_default_tf32():
+        train_net(cfg, stats=stats)
+    wall = time.perf_counter() - t0
+    fwd, bwd = fmr.launches + fmr.replayed, flash_read_bwd.launches
+    losses = _losses(cfg)
+    n_batches = TN_VIDEOS * TN_REPEAT // cfg.TRAIN.BATCH_SIZE
+    if (stats.skipped or stats.non_finite or stats.batches != n_batches
+            or bwd != n_batches * (cfg.TRAIN.N_MAX_FRAMES - 1)):
+        raise AssertionError(f"train_net with BF16 and USE_BATCH_NORM: {stats}, losses "
+                             f"{losses}, backward launches {bwd}")
+    ckpt = TN_DIR / "out" / "checkpoints" / cfg.CONST.EXP_NAME / "ckpt-epoch-001.pth"
+    rm_sd = load_weights_auto(str(ckpt))[0]
+    init = build_models(cfg, cfg.CONST.RNG_SEED, device="cpu")[0].state_dict()
+    names = [k for k in rm_sd if ".running_" in k]
+    moved = sum(rm_sd[k].dtype == torch.float32 and not torch.equal(rm_sd[k], init[k])
+                for k in names)
+    floats = {str(v.dtype) for v in rm_sd.values() if v.is_floating_point()}
+    if moved != len(names) or floats != {"torch.float32"}:
+        raise AssertionError(f"ckpt-epoch-001.pth: {moved} of {len(names)} running statistics "
+                             f"moved, floating dtypes {floats}")
+    batch_ms = [round(b * 1e3, 3) for _, b, _ in stats.batch_times]
+    log(f"train_bf16: train_net, one epoch of {n_batches} batches with TRAIN.BF16 and "
+        f"TRAIN.USE_BATCH_NORM on the train_net tree in {wall:.1f} s: losses "
+        f"{[round(x, 5) for x in losses]}, BatchTime {batch_ms} ms, validation "
+        f"{[round(x, 3) for x in stats.val_s]} s; ckpt-epoch-001.pth float32 with all "
+        f"{len(names)} running statistics moved; read launches (fwd, bwd) ({fwd}, {bwd}) [{smi}]")
+    return dict(wall_s=wall, losses=losses, batch_ms=batch_ms, val_s=stats.val_s,
+                launches=dict(fwd=fwd, bwd=bwd)), fwd, bwd
+
+
+def phase_train_bf16(smi, models) -> tuple:
+    """TRAIN.BF16 at the reference TRAIN shape: the bf16 step against the
+    f32 step (TF32 off) on one batch and the same weights; one step counted
+    (T-1 forward and T-1 backward read launches, bf16 operands, every
+    convolution bf16 x bf16); ms, clips/s and peak memory at bf16, f32 TF32
+    off and f32 TF32 on; the step profiled (convolution kernels by type);
+    both kernels timed at its last read; then trainable BN (bn_steps) and a
+    train_net epoch with both flags -> (report, forward launches, backward
+    launches)."""
+    from rmnet_tpu_torch.config import Config
+    from rmnet_tpu_torch.ops.flash_attention import flash_memory_read as fmr
+    from rmnet_tpu_torch.ops.flash_attention import flash_read_bwd
+    from rmnet_tpu_torch.train import Trainer
+
+    t_phase = time.perf_counter()
+    cfg = Config()
+    trainer = Trainer(cfg, *models)
+    batch = trainer.to_device(make_train_batch(cfg))
+    T = batch["frames"].shape[1]
+    loss32, g32 = _loss_grads(trainer, batch)
+    times = {"f32, TF32 off": _time_steps(trainer, batch)}
+    with torch_default_tf32():
+        times["f32, TF32 on"] = _time_steps(trainer, batch)
+    del trainer
+    gc.collect()
+    cfg.TRAIN.BF16 = True
+    trainer = Trainer(cfg, *models)
+    loss16, g16 = _loss_grads(trainer, batch)
+    rel = {k: ((g16[k] - g.float()).abs().max() / g.abs().max()).item()
+           for k, g in g32.items() if g.abs().max() > 0}
+    median, worst = statistics.median(rel.values()), max(rel, key=rel.get)
+    loss_rel = abs(loss16 - loss32) / abs(loss32)
+    dtypes = {str(g.dtype) for g in g16.values()} | {str(p.dtype) for p in
+                                                     trainer.rmnet.parameters()}
+    del g32, g16
+    log(f"train_bf16: the bf16 step against the f32 step (TF32 off), same batch and weights: "
+        f"loss {loss16:.6f} against {loss32:.6f} ({loss_rel:.3e}, bound {BF16_LOSS_REL}); "
+        f"gradients per tensor max|bf16 - f32| / max|f32|: median {median:.3e} (bound "
+        f"{BF16_GRAD_MEDIAN}), worst {rel[worst]:.3e} at {worst} (bound {BF16_GRAD_REL}); "
+        f"parameters and gradients {sorted(dtypes)}")
+    if (loss_rel > BF16_LOSS_REL or median > BF16_GRAD_MEDIAN or rel[worst] > BF16_GRAD_REL
+            or dtypes != {"torch.float32"}):
+        raise AssertionError("the bf16 step disagrees with the f32 step")
+    # one step with the counts at 0: reads, their operands, the convolutions
+    fmr.launches = fmr.captured = fmr.replayed = flash_read_bwd.launches = 0
+    with _Record("flash_memory_read", grads=True) as rec, _ConvDtypes() as convs:
+        trainer.train_step(batch)
+    launches = (fmr.launches, flash_read_bwd.launches)
+    read_types = [tuple(str(a.dtype) for a in call["args"][0][:3])
+                  + (str(call["result"][0].dtype), str(call["d_out"].dtype)) for call in rec.calls]
+    conv_types = {k: v for k, v in convs.seen.items()}
+    if (launches != (T - 1, T - 1) or any(set(t) != {"torch.bfloat16"} for t in read_types)
+            or any(set(k[1:]) != {"bfloat16"} for k in conv_types)):
+        raise AssertionError(f"the bf16 step: launches {launches} (want {(T - 1, T - 1)}), "
+                             f"reads {read_types}, convolutions {conv_types}")
+    # both kernels at the step's last read, timed before the step is
+    # profiled (as phases times and train_times order them)
+    names = ("m_key", "m_val", "q_key", "slot_valid", "bboxes")
+    call = rec.calls[-1]
+    (args, kwargs), (out, lse) = call["args"], call["result"]
+    c = dict(zip(names, (a.detach() for a in args)), **kwargs)
+    bargs = bwd_args(c, call["d_out"], out.detach(), lse)
+    del rec
+    errs = (compare_read("train_bf16_step_read", c), compare_bwd("train_bf16_step_read", bargs))
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    fwd = fwd_time_row(c, flush, limit=None)
+    log_fwd_times(f"the bf16 step's t={T - 1} read", fwd, smi)
+    bwd = bwd_time_row(c, bargs, flush)
+    log_bwd_times(f"the bf16 step's t={T - 1} read", bwd, T - 1, smi)
+    times["bf16"] = _time_steps(trainer, batch)
+    prof = profile_device(smi, lambda: trainer.train_step(batch), 1, "step",
+                          times["bf16"]["ms"], "profile_train_bf16.txt")
+    conv_ms = conv_kernels_by_dtype("profile_train_bf16.txt")
+    for name, t in times.items():
+        log(f"time train {name}: {t['ms']:.3f} ms per step, {t['clips_per_s']:.3f} clips/s "
+            f"(median of {TRAIN_STEPS} steps after 1 warm-up), peak memory {t['peak_gb']:.2f} "
+            f"GB, {t['step_gb']:.2f} GB above what was held [{smi}]")
+    log(f"train_bf16: one step counted: read launches (fwd, bwd) {launches}, read operands "
+        f"(keys, values, queries, out, d_out) {sorted(set(read_types))}; convolutions by "
+        f"(pass, operand types): {conv_types}; convolution kernels' device ms by the type in "
+        f"their name {conv_ms}")
+    del trainer, flush, c, bargs
+    gc.collect()
+    bn = bn_steps(smi, models, batch)
+    del batch
+    gc.collect()
+    tn, tn_fwd, tn_bwd = train_net_bf16_bn(smi)
+    log(f"train_bf16: the phase {time.perf_counter() - t_phase:.1f} s")
+    report = dict(card=smi, tf32="off unless named", loss=dict(bf16=loss16, f32=loss32),
+                  grad_rel_median=median, grad_rel_worst=(worst, rel[worst]), times=times,
+                  launches_per_step=launches, read_types=sorted(set(read_types)),
+                  conv_types={" ".join(k): v for k, v in conv_types.items()},
+                  conv_kernel_ms=conv_ms, profile=prof, fwd_read=fwd, bwd_read=bwd,
+                  kernel_vs_plain=errs, bn=bn, train_net=tn)
+    return report, launches[0] + tn_fwd, launches[1] + tn_bwd
 
 
 def _losses(cfg) -> list:
@@ -2452,6 +2922,13 @@ def main(argv=None) -> int:
     gc.collect()
     report["train_net"], by_path["train_net"], bwd_by_path["train_net"] = phase_train_net(
         smi, models)
+    gc.collect()
+    report["eval_server"], by_path["eval_server"] = phase_eval_server(smi)
+    bwd_by_path["eval_server"] = 0
+    gc.collect()
+    report["train_bf16"], by_path["train_bf16"], bwd_by_path["train_bf16"] = phase_train_bf16(
+        smi, models)
+    shutil.rmtree(TN_DIR / "out" / "checkpoints")  # about 0.5 GB each, weights and Adam state
     gc.collect()
     report["eval"] = phase_eval(smi, models)
     by_path["eval"] = report["eval"]["launches"]["eager"] + report["eval"]["launches"]["replayed"]

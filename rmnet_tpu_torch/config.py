@@ -22,10 +22,11 @@ model in silence:
   * honoured: the schedule, curriculum, checkpoint gating, augmentation,
     ``BACKBONE_WEIGHTS``, ``RESUME_FULL_STATE``, ``FLASH_ATTENTION``,
     ``REMAT`` ("none", "encoders", "step"; another value raises
-    ValueError) and ``GRAD_ACCUM_STEPS`` (it must divide ``BATCH_SIZE``);
-  * refused with NotImplementedError: ``BF16 = True`` and
-    ``USE_BATCH_NORM = True`` (ROADMAP queue 1 item 2),
-    ``DATA_PARALLEL > 1`` (item 4).
+    ValueError), ``GRAD_ACCUM_STEPS`` (it must divide ``BATCH_SIZE``),
+    ``BF16`` (bfloat16 convolutions on float32 weights) and
+    ``USE_BATCH_NORM`` (BatchNorm on batch statistics);
+  * refused with NotImplementedError: ``DATA_PARALLEL > 1`` (ROADMAP queue
+    1 item 4).
 """
 
 from __future__ import annotations

@@ -1,0 +1,117 @@
+"""Layers with a compute dtype, and a BatchNorm whose training mode hands
+its running statistics back (counterpart of rmnet_tpu/nn/layers.py).
+
+Compute dtype (flax's ``dtype``, rmnet_tpu/nn/layers.py:40-60): a conv
+casts its input, weight and bias to ``compute_dtype`` inside its forward
+and returns that dtype, so parameters keep their own dtype and autograd
+carries each gradient back to it in that dtype: float32 master weights
+train with bfloat16 convolutions (TRAIN.BF16). ``compute_dtype = None``
+computes in the weight's dtype, as torch's layers do (the serving engine
+casts whole modules).
+
+Trainable BatchNorm (rmnet_tpu/nn/layers.py:172-183, TRAIN.USE_BATCH_NORM):
+the running statistics are an input and an output of the forward, never
+written in place, so that a rematerialised forward (torch.utils.checkpoint
+re-runs it in the backward pass) counts nothing twice. :func:`train_batch_norm`
+runs a function with every :class:`BatchNorm2d` of a module in that mode.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+_STATS = ("running_mean", "running_var")
+
+
+class Conv2d(nn.Conv2d):
+    """nn.Conv2d computing in ``compute_dtype`` (None: the weight's)."""
+
+    compute_dtype: Optional[torch.dtype] = None
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.compute_dtype or self.weight.dtype
+
+    def forward(self, x):
+        dt = self.dtype
+        bias = None if self.bias is None else self.bias.to(dt)
+        return self._conv_forward(x.to(dt), self.weight.to(dt), bias)
+
+
+class ConvTranspose2d(nn.ConvTranspose2d):
+    """nn.ConvTranspose2d computing in ``compute_dtype`` (None: the weight's)."""
+
+    compute_dtype: Optional[torch.dtype] = None
+    dtype = Conv2d.dtype
+
+    def forward(self, x):
+        dt = self.dtype
+        bias = None if self.bias is None else self.bias.to(dt)
+        return F.conv_transpose2d(x.to(dt), self.weight.to(dt), bias, self.stride,
+                                  self.padding, self.output_padding, self.groups,
+                                  self.dilation)
+
+
+def set_compute_dtype(module: nn.Module, dtype: Optional[torch.dtype]) -> nn.Module:
+    """Every conv of ``module`` computes in ``dtype`` (None: its weight's)."""
+    for m in module.modules():
+        if isinstance(m, (Conv2d, ConvTranspose2d)):
+            m.compute_dtype = dtype
+    return module
+
+
+class BatchNorm2d(nn.BatchNorm2d):
+    """nn.BatchNorm2d on its running statistics (frozen, in eval mode), or,
+    while ``batch_stats`` holds a (mean, var) pair, on the batch's: it
+    normalizes with the input's mean and biased variance over (N, H, W),
+    computed in float32, and leaves the running statistics that follow,
+    ``(1 - 0.1) * old + 0.1 * batch`` with the unbiased variance
+    ``n / (n - 1)``, in ``new_stats``. Neither the pair nor the module's
+    buffers are written."""
+
+    batch_stats: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+    new_stats: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+
+    def forward(self, x):
+        if self.batch_stats is None:
+            return super().forward(x)
+        mean, var = (s.clone() for s in self.batch_stats)
+        out = F.batch_norm(x, mean, var, self.weight, self.bias, True, self.momentum, self.eps)
+        self.new_stats = (mean, var)
+        return out
+
+
+def batch_norms(module: nn.Module) -> List[Tuple[str, BatchNorm2d]]:
+    return [(n, m) for n, m in module.named_modules() if isinstance(m, BatchNorm2d)]
+
+
+def running_stats(module: nn.Module, prefix: str = "") -> Dict[str, torch.Tensor]:
+    """The running statistics of ``module``'s BatchNorms by state-dict name
+    (``prefix`` + ``res2.0.bn1.running_mean``, ...): the buffers themselves."""
+    return {f"{prefix}{n}.{s}": getattr(m, s) for n, m in batch_norms(module) for s in _STATS}
+
+
+def train_batch_norm(module: nn.Module, prefix: str, stats: Dict[str, torch.Tensor], fn,
+                     *args):
+    """``fn(*args)`` with every BatchNorm2d of ``module`` on batch statistics,
+    its running statistics read from ``stats`` (named as
+    :func:`running_stats` names them) -> (fn's result, a copy of ``stats``
+    with ``module``'s replaced by the updated ones)."""
+    bns = batch_norms(module)
+    for n, m in bns:
+        m.batch_stats = tuple(stats[f"{prefix}{n}.{s}"] for s in _STATS)
+    try:
+        out = fn(*args)
+        new = dict(stats)
+        for n, m in bns:
+            if m.new_stats is None:
+                raise RuntimeError(f"BatchNorm {prefix}{n} did not run")
+            new.update(zip((f"{prefix}{n}.{s}" for s in _STATS), m.new_stats))
+    finally:  # also when a checkpoint's recompute stops early by raising
+        for _, m in bns:
+            m.batch_stats = m.new_stats = None
+    return out, new

@@ -1,9 +1,10 @@
 """ResNet-50 trunk through layer3 (counterpart of rmnet_tpu/models/resnet.py).
 
-torchvision's "v1.5" bottleneck (stride on the 3x3 conv), frozen BatchNorm
-(the engine keeps every module in eval mode). Attribute names follow the
-reference encoders (conv1, bn1, res2, res3, res4), so reference state dicts
-load as they are.
+torchvision's "v1.5" bottleneck (stride on the 3x3 conv). BatchNorm is
+frozen (every module stays in eval mode) unless ``train_batch_norm`` runs
+it on batch statistics (TRAIN.USE_BATCH_NORM); the convs take a compute
+dtype (models/layers.py). Attribute names follow the reference encoders
+(conv1, bn1, res2, res3, res4), so reference state dicts load as they are.
 """
 
 from __future__ import annotations
@@ -14,6 +15,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from rmnet_tpu_torch.models.layers import BatchNorm2d, Conv2d
+
 
 class Bottleneck(nn.Module):
     """1x1 -> 3x3(stride) -> 1x1(x4) + residual."""
@@ -21,16 +24,16 @@ class Bottleneck(nn.Module):
     def __init__(self, cin: int, planes: int, stride: int = 1):
         super().__init__()
         cout = planes * 4
-        self.conv1 = nn.Conv2d(cin, planes, 1, bias=False)
-        self.bn1 = nn.BatchNorm2d(planes)
-        self.conv2 = nn.Conv2d(planes, planes, 3, stride=stride, padding=1, bias=False)
-        self.bn2 = nn.BatchNorm2d(planes)
-        self.conv3 = nn.Conv2d(planes, cout, 1, bias=False)
-        self.bn3 = nn.BatchNorm2d(cout)
+        self.conv1 = Conv2d(cin, planes, 1, bias=False)
+        self.bn1 = BatchNorm2d(planes)
+        self.conv2 = Conv2d(planes, planes, 3, stride=stride, padding=1, bias=False)
+        self.bn2 = BatchNorm2d(planes)
+        self.conv3 = Conv2d(planes, cout, 1, bias=False)
+        self.bn3 = BatchNorm2d(cout)
         self.downsample = None
         if stride != 1 or cin != cout:
             self.downsample = nn.Sequential(
-                nn.Conv2d(cin, cout, 1, stride=stride, bias=False), nn.BatchNorm2d(cout)
+                Conv2d(cin, cout, 1, stride=stride, bias=False), BatchNorm2d(cout)
             )
 
     def forward(self, x):
@@ -52,8 +55,8 @@ class ResNet50Trunk(nn.Module):
 
     def __init__(self):
         super().__init__()
-        self.conv1 = nn.Conv2d(3, 64, 7, stride=2, padding=3, bias=False)
-        self.bn1 = nn.BatchNorm2d(64)
+        self.conv1 = Conv2d(3, 64, 7, stride=2, padding=3, bias=False)
+        self.bn1 = BatchNorm2d(64)
         self.res2 = _make_layer(64, 64, 3, 1)
         self.res3 = _make_layer(256, 128, 4, 2)
         self.res4 = _make_layer(512, 256, 6, 2)

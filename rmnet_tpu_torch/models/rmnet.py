@@ -22,7 +22,15 @@ control flow lives in :class:`RMNetApply`, as in the JAX package:
   * rematerialisation (training, ``torch.utils.checkpoint``, non-reentrant):
     ``remat_encoders`` recomputes the two ResNet-50 encoders in the backward
     pass, ``remat`` each whole frame of ``forward_video``
-    (rmnet_tpu/models/rmnet.py:401-430, 958).
+    (rmnet_tpu/models/rmnet.py:401-430, 958);
+  * trainable BatchNorm (training, ``train_bn``): the encoders normalize
+    with batch statistics, and their running statistics (a dict by
+    state-dict name) go in and out of ``memorize``, ``segment`` and each
+    frame of ``forward_video`` as values, the memory encoder's then the
+    query encoder's per frame, as the JAX package threads its
+    ``batch_stats`` (rmnet_tpu/models/rmnet.py:411-430, 921-984); nothing
+    is written in place, so a rematerialised frame counts nothing twice.
+    ``step`` is the serving step and never trains them.
 
 Constants 32.0605 / -16.1181 (reference models/rmnet.py:442-448) equal
 log(eps / (1 - eps)) for the aggregation clamp eps = 1e-7.
@@ -31,6 +39,7 @@ log(eps / (1 - eps)) for the aggregation clamp eps = 1e-7.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Optional, Tuple
 
@@ -40,6 +49,8 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from rmnet_tpu_torch.models.layers import (Conv2d, running_stats, set_compute_dtype,
+                                          train_batch_norm)
 from rmnet_tpu_torch.models.resnet import ResNet50Trunk
 from rmnet_tpu_torch.ops.aggregation import soft_aggregation
 from rmnet_tpu_torch.ops.att_map import (regional_attention_small,
@@ -71,9 +82,9 @@ class ResBlock(nn.Module):
         outdim = outdim or indim
         self.downsample = None
         if indim != outdim or stride != 1:
-            self.downsample = nn.Conv2d(indim, outdim, 3, padding=1, stride=stride)
-        self.conv1 = nn.Conv2d(indim, outdim, 3, padding=1, stride=stride)
-        self.conv2 = nn.Conv2d(outdim, outdim, 3, padding=1)
+            self.downsample = Conv2d(indim, outdim, 3, padding=1, stride=stride)
+        self.conv1 = Conv2d(indim, outdim, 3, padding=1, stride=stride)
+        self.conv2 = Conv2d(outdim, outdim, 3, padding=1)
 
     def forward(self, x):
         r = self.conv2(F.relu(self.conv1(F.relu(x))))
@@ -87,14 +98,13 @@ class EncoderMemory(ResNet50Trunk):
 
     def __init__(self):
         super().__init__()
-        self.conv1_m = nn.Conv2d(1, 64, 7, stride=2, padding=3, bias=False)
-        self.conv1_o = nn.Conv2d(1, 64, 7, stride=2, padding=3, bias=False)
+        self.conv1_m = Conv2d(1, 64, 7, stride=2, padding=3, bias=False)
+        self.conv1_o = Conv2d(1, 64, 7, stride=2, padding=3, bias=False)
 
     def forward(self, f, m, o):
         """f (B, 3, H, W); m, o (B, H, W) -> r4 (B, 1024, H/16, W/16)."""
-        dt = self.conv1.weight.dtype
-        extra = self.conv1_m(m[:, None].to(dt)) + self.conv1_o(o[:, None].to(dt))
-        return self.trunk(f.to(dt), extra_stem=extra)[0]
+        extra = self.conv1_m(m[:, None]) + self.conv1_o(o[:, None])
+        return self.trunk(f, extra_stem=extra)[0]
 
     def shared(self, f, m_bk, o_bk):
         """Per-object encode with the three 7x7 stems merged into one
@@ -103,11 +113,11 @@ class EncoderMemory(ResNet50Trunk):
         conv with the kernels concatenated on the input axis."""
         B = f.shape[0]
         Ko = m_bk.shape[0] // B
-        dt = self.conv1.weight.dtype
+        dt = self.conv1.dtype
         f_bk = f.to(dt)[:, None].expand(B, Ko, *f.shape[1:]).reshape(B * Ko, *f.shape[1:])
         x5 = torch.cat([f_bk, m_bk[:, None].to(dt), o_bk[:, None].to(dt)], dim=1)
         w5 = torch.cat([self.conv1.weight, self.conv1_m.weight, self.conv1_o.weight], dim=1)
-        c1 = F.conv2d(x5, w5, stride=2, padding=3)
+        c1 = F.conv2d(x5, w5.to(dt), stride=2, padding=3)
         return self.trunk(None, conv1_out=c1)[0]
 
 
@@ -115,7 +125,7 @@ class EncoderQuery(ResNet50Trunk):
     """RGB-only ResNet-50 trunk (reference models/rmnet.py:83-104)."""
 
     def forward(self, f):
-        r4, r3, r2, _ = self.trunk(f.to(self.conv1.weight.dtype))
+        r4, r3, r2, _ = self.trunk(f)
         return r4, r3, r2
 
 
@@ -124,8 +134,8 @@ class KeyValue(nn.Module):
 
     def __init__(self, indim: int = 1024, keydim: int = 128, valdim: int = 512):
         super().__init__()
-        self.key_conv = nn.Conv2d(indim, keydim, 3, padding=1)
-        self.value_conv = nn.Conv2d(indim, valdim, 3, padding=1)
+        self.key_conv = Conv2d(indim, keydim, 3, padding=1)
+        self.value_conv = Conv2d(indim, valdim, 3, padding=1)
 
     def forward(self, x):
         return self.key_conv(x), self.value_conv(x)
@@ -136,7 +146,7 @@ class Refine(nn.Module):
 
     def __init__(self, inplanes: int, planes: int, scale_factor: int = 2):
         super().__init__()
-        self.convFS = nn.Conv2d(inplanes, planes, 3, padding=1)
+        self.convFS = Conv2d(inplanes, planes, 3, padding=1)
         self.ResFS = ResBlock(planes)
         self.ResMM = ResBlock(planes)
         self.scale_factor = scale_factor
@@ -161,11 +171,11 @@ class Decoder(nn.Module):
 
     def __init__(self, mdim: int = 256):
         super().__init__()
-        self.convFM = nn.Conv2d(1024, mdim, 3, padding=1)
+        self.convFM = Conv2d(1024, mdim, 3, padding=1)
         self.ResMM = ResBlock(mdim)
         self.RF3 = Refine(512, mdim)
         self.RF2 = Refine(256, mdim)
-        self.pred2 = nn.Conv2d(mdim, 2, 3, padding=1)
+        self.pred2 = Conv2d(mdim, 2, 3, padding=1)
 
     def skips(self, r3, r2):
         """Per-frame skip features (the object-independent half)."""
@@ -227,15 +237,17 @@ def _slot_valid(capacity: int, cursor: torch.Tensor, commit: torch.Tensor) -> to
 
 
 class RMNet(nn.Module):
-    """Container of the RMNet sub-networks (reference state-dict names)."""
+    """Container of the RMNet sub-networks (reference state-dict names);
+    ``dtype`` is every conv's compute dtype (None: the weights')."""
 
-    def __init__(self):
+    def __init__(self, dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.encoder_memory = EncoderMemory()
         self.encoder_query = EncoderQuery()
         self.kv_memory = KeyValue(1024, 128, 512)
         self.kv_query = KeyValue(1024, 128, 512)
         self.decoder = Decoder(256)
+        set_compute_dtype(self, dtype)
 
 
 @dataclasses.dataclass
@@ -286,11 +298,37 @@ class RMNetApply:
     # training: recompute only the two encoders' interiors in the backward
     # pass, most of the saved activations (TRAIN.REMAT = "encoders")
     remat_encoders: bool = False
+    # training: BatchNorm on batch statistics, the running statistics
+    # threaded through forward_video (TRAIN.USE_BATCH_NORM)
+    train_bn: bool = False
 
-    def _encoder(self, fn, *args):
+    def running_stats(self):
+        """The encoders' running BatchNorm statistics by state-dict name
+        (the module's buffers)."""
+        return {**running_stats(self.model.encoder_memory, "encoder_memory."),
+                **running_stats(self.model.encoder_query, "encoder_query.")}
+
+    def load_running_stats(self, bn) -> None:
+        """Copy ``bn`` (as :meth:`running_stats` names them) into the
+        module's buffers."""
+        with torch.no_grad():
+            for name, buf in self.running_stats().items():
+                buf.copy_(bn[name])
+
+    def _encoder(self, name, method, bn, *args):
+        """``method`` of encoder ``name`` on ``args`` -> (its output, bn):
+        with ``bn`` (running statistics), BatchNorm on batch statistics and
+        ``bn`` with this encoder's updated; rematerialised under
+        ``remat_encoders``."""
+        encoder = getattr(self.model, name)
+        fn = getattr(encoder, method)
+        if bn is not None:
+            fn = functools.partial(train_batch_norm, encoder, name + ".", bn, fn)
         if self.remat_encoders and torch.is_grad_enabled():
-            return checkpoint(fn, *args, use_reentrant=False)
-        return fn(*args)
+            out = checkpoint(fn, *args, use_reentrant=False)
+        else:
+            out = fn(*args)
+        return out if bn is not None else (out, None)
 
     def _att(self, mask, out_hw, offset):
         return regional_attention_small(
@@ -298,12 +336,13 @@ class RMNetApply:
             self.prob_threshold, self.n_pts_threshold, self.n_bbox_loose_pixels,
         )
 
-    def memorize(self, frame, masks, obj_valid):
+    def memorize(self, frame, masks, obj_valid, bn=None):
         """Encode one frame into per-object regional keys/values.
 
         frame (B, 3, H, W), masks (B, K, H, W), obj_valid (B, K) bool ->
-        (k4 (B, K, h, w, Ck), v4 (B, K, h, w, Cv), bboxes (B, K, 4) int32),
-        channels last; slot 0 and invalid objects are zero.
+        (k4 (B, K, h, w, Ck), v4 (B, K, h, w, Cv), bboxes (B, K, 4) int32,
+        bn), channels last; slot 0 and invalid objects are zero. ``bn``:
+        running statistics, the memory encoder's updated (None: frozen).
         """
         B, K = masks.shape[:2]
         (frame_p,), _ = pad_divide_by([frame], 16, spatial_axes=(-2, -1))
@@ -316,9 +355,9 @@ class RMNetApply:
         # only the K-1 object slots are encoded; the RGB stem is shared
         Ko = K - 1
         m = self.model
-        r4 = self._encoder(m.encoder_memory.shared, frame_p,
-                           masks_p[:, 1:].reshape(B * Ko, Hp, Wp),
-                           others[:, 1:].reshape(B * Ko, Hp, Wp))
+        r4, bn = self._encoder("encoder_memory", "shared", bn, frame_p,
+                               masks_p[:, 1:].reshape(B * Ko, Hp, Wp),
+                               others[:, 1:].reshape(B * Ko, Hp, Wp))
         k4, v4 = m.kv_memory(r4)
         h, w = k4.shape[-2:]
         att, bboxes = self._att(masks_p, (h, w), (0, 0))
@@ -326,7 +365,8 @@ class RMNetApply:
         keep = (att * v)[:, 1:].to(k4.dtype)[..., None]  # (B, Ko, h, w, 1)
         k_obj = k4.permute(0, 2, 3, 1).reshape(B, Ko, h, w, -1) * keep
         v_obj = v4.permute(0, 2, 3, 1).reshape(B, Ko, h, w, -1) * keep
-        return F.pad(k_obj, (0, 0, 0, 0, 0, 0, 1, 0)), F.pad(v_obj, (0, 0, 0, 0, 0, 0, 1, 0)), bboxes
+        pad = (0, 0, 0, 0, 0, 0, 1, 0)
+        return F.pad(k_obj, pad), F.pad(v_obj, pad), bboxes, bn
 
     def get_att_small(self, prev_mask, flow, out_hw, offset):
         """Warp the previous mask by ``flow`` (B, 2, H, W) and rasterize its
@@ -351,19 +391,20 @@ class RMNetApply:
         return self._att(expt, out_hw, offset)[0]
 
     def segment(self, frame, att_small, mem_keys, mem_values, slot_valid,
-                obj_valid, mem_bboxes=None):
-        """One segmentation pass -> (B, K, H, W) float32 logits
+                obj_valid, mem_bboxes=None, bn=None):
+        """One segmentation pass -> ((B, K, H, W) float32 logits, bn)
         (reference models/rmnet.py:304-383).
 
         frame (B, 3, H, W); att_small (B, K, h, w); mem_keys/values
         (B, K, S, h, w, C); slot_valid (B, S) bool, per stream; mem_bboxes
-        (B, K, S, 4), needed by the flash read.
+        (B, K, S, 4), needed by the flash read; ``bn``: running statistics,
+        the query encoder's updated (None: frozen).
         """
         B, K, S = mem_keys.shape[:3]
         (frame_p,), pads = pad_divide_by([frame], 16, spatial_axes=(-2, -1))
         Hp, Wp = frame_p.shape[-2:]
         m = self.model
-        r4, r3, r2 = self._encoder(m.encoder_query, frame_p)
+        (r4, r3, r2), bn = self._encoder("encoder_query", "forward", bn, frame_p)
         k4, v4 = m.kv_query(r4)
         h, w = k4.shape[-2:]
 
@@ -391,7 +432,7 @@ class RMNetApply:
         ps = torch.softmax(logits2, dim=1)[:, 1].reshape(B, Ko, Hp, Wp)
         ps = F.pad(ps, (0, 0, 0, 0, 1, 0))
         logit = soft_aggregation(ps, obj_valid)
-        return unpad(logit, pads, spatial_axes=(-2, -1))
+        return unpad(logit, pads, spatial_axes=(-2, -1)), bn
 
     def step(self, state: VOSState, frame, flow, gt_mask, any_new, commit,
              obj_valid) -> Tuple[VOSState, torch.Tensor]:
@@ -408,8 +449,8 @@ class RMNetApply:
         """
         B = frame.shape[0]
         S = state.capacity
-        prev_k, prev_v, prev_box = self.memorize(state.prev_frame, state.prev_mask,
-                                                 obj_valid)
+        prev_k, prev_v, prev_box, _ = self.memorize(state.prev_frame, state.prev_mask,
+                                                    obj_valid)
         # The JAX step builds `concat(bank, prev)` every frame; on the card
         # that copies the whole bank (~200 MB at bf16, 480p, S=32) per frame.
         # Here the bank holds capacity + 1 slots and prev goes into the last
@@ -424,7 +465,7 @@ class RMNetApply:
             buf[:, :, S] = item
 
         slot_valid = _slot_valid(S, state.cursor, commit)
-        est_mask, exist = self._segment_frame(
+        est_mask, exist, _ = self._segment_frame(
             state.prev_mask, state.exist, frame, flow, gt_mask, any_new, obj_valid,
             state.keys, state.values, state.bboxes, slot_valid)
         new_state = dataclasses.replace(
@@ -466,15 +507,15 @@ class RMNetApply:
         return torch.stack(ests)
 
     def _segment_frame(self, prev_mask, exist, frame, flow, gt_mask, any_new,
-                       obj_valid, keys, values, bboxes, slot_valid):
+                       obj_valid, keys, values, bboxes, slot_valid, bn=None):
         """Segment ``frame`` against the bank, inject new objects, suppress
-        unrevealed ones -> (est_mask (B, K, H, W), exist)."""
+        unrevealed ones -> (est_mask (B, K, H, W), exist, bn)."""
         H, W = frame.shape[-2:]
         lw, uw, lh, uh = divide_pads(H, W, 16)
         out_hw = ((H + lh + uh) // 16, (W + lw + uw) // 16)
         att_small = self.get_att_small(prev_mask, flow, out_hw, (lh, lw))
-        logit = self.segment(frame, att_small, keys, values, slot_valid, obj_valid,
-                             mem_bboxes=bboxes)
+        logit, bn = self.segment(frame, att_small, keys, values, slot_valid, obj_valid,
+                                 mem_bboxes=bboxes, bn=bn)
 
         # new-object injection (models/rmnet.py:436-442), per stream
         newly = _present_objects(gt_mask) & ~exist & any_new[:, None]
@@ -484,9 +525,9 @@ class RMNetApply:
         # suppress objects not revealed yet (models/rmnet.py:444-448)
         logit = torch.where(exist[:, :, None, None], logit,
                             torch.full_like(logit, SUPPRESSED))
-        return torch.softmax(logit, dim=1), exist
+        return torch.softmax(logit, dim=1), exist, bn
 
-    def forward_video(self, frames, masks, flows, n_objects) -> torch.Tensor:
+    def forward_video(self, frames, masks, flows, n_objects, bn=None):
         """Whole-clip forward with backprop through time (training; the JAX
         package's forward_video, rmnet_tpu/models/rmnet.py:921-984).
 
@@ -495,7 +536,9 @@ class RMNetApply:
         (B, T) on the host -> est (B, T, K, H, W); frame 0's estimate is the
         ground truth. The bank has capacity max(T-1, 1), so it never evicts.
         Each frame's bank is built out of place (committed slots ++ prev),
-        because the memory read saves it for the backward pass.
+        because the memory read saves it for the backward pass. With
+        ``train_bn`` -> (est, the running statistics after the clip),
+        starting from ``bn`` (default: the module's own).
         """
         B, T, K, H, W = masks.shape
         n_objects = np.asarray(n_objects.cpu() if torch.is_tensor(n_objects) else n_objects)
@@ -520,15 +563,15 @@ class RMNetApply:
         def flag(value, dtype=torch.bool):  # one host flag for every stream
             return torch.full((B,), value, dtype=dtype, device=masks.device)
 
-        def frame_step(t, cursor, filled, prev_frame, prev_mask, exist, *committed):
-            """Frame t from what frame t-1 carries -> (est_t, exist, k, v, box),
-            the last three frame t-1's memory. ``filled`` flags the ring
-            slots that ``committed`` holds, as (k, v, box) in slot order;
-            when frame t-1 is committed, its memory takes slot
+        def frame_step(t, cursor, filled, prev_frame, prev_mask, exist, bn, *committed):
+            """Frame t from what frame t-1 carries -> (est_t, exist, bn, k, v,
+            box), the last three frame t-1's memory. ``filled`` flags the
+            ring slots that ``committed`` holds, as (k, v, box) in slot
+            order; when frame t-1 is committed, its memory takes slot
             ``cursor % capacity``. Everything it reads comes in as an
             argument, so that a rematerialised frame recomputes the same."""
             write = cursor % capacity if commit[t - 1] else -1
-            prev = self.memorize(prev_frame, prev_mask, obj_valid)
+            *prev, bn = self.memorize(prev_frame, prev_mask, obj_valid, bn)
             it = iter(committed)
             bank = [prev if i == write else
                     (next(it), next(it), next(it)) if filled[i] else
@@ -537,27 +580,30 @@ class RMNetApply:
                                     for i in range(3))
             slot_valid = _slot_valid(capacity, flag(cursor, torch.int32),
                                      flag(bool(commit[t - 1])))
-            est_t, exist = self._segment_frame(
+            est_t, exist, bn = self._segment_frame(
                 prev_mask, exist, frames_c[:, t], flows_c[:, t], masks[:, t],
-                flag(bool(any_new[t])), obj_valid, keys, values, bboxes, slot_valid)
-            return (est_t, exist) + prev
+                flag(bool(any_new[t])), obj_valid, keys, values, bboxes, slot_valid, bn)
+            return (est_t, exist, bn, *prev)
 
+        if self.train_bn and bn is None:
+            bn = self.running_stats()
         for t in range(1, T):
             write = cursor % capacity if commit[t - 1] else -1
             filled = tuple(s is not None and i != write for i, s in enumerate(slots))
             committed = [x for i, s in enumerate(slots) if filled[i] for x in s]
-            args = (t, cursor, filled, prev_frame, prev_mask, exist, *committed)
+            args = (t, cursor, filled, prev_frame, prev_mask, exist, bn, *committed)
             if self.remat and torch.is_grad_enabled():
                 out = checkpoint(frame_step, *args, use_reentrant=False)
             else:
                 out = frame_step(*args)
-            est_t, exist, prev = out[0], out[1], out[2:]
+            est_t, exist, bn, prev = out[0], out[1], out[2], out[3:]
             if commit[t - 1]:
                 slots[write] = prev
             est.append(est_t)
             cursor += int(commit[t - 1])
             prev_mask, prev_frame = est_t, frames_c[:, t]
-        return torch.stack(est, dim=1)
+        est = torch.stack(est, dim=1)
+        return (est, bn) if self.train_bn else est
 
     def init_state(self, frame0, masks0, capacity: int, dtype=torch.float32,
                    key_dim: int = 128, val_dim: int = 512) -> VOSState:

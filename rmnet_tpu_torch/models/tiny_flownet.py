@@ -3,29 +3,36 @@ rmnet_tpu/models/tiny_flownet.py; reference models/tiny_flownet.py).
 
 Inputs are padded to /64 and halved (bilinear, align_corners=False) before
 the conv stack; ``flow2`` is predicted at 1/8 of the padded size, upsampled
-x8 and un-padded. Transposed convs are native ``nn.ConvTranspose2d``. The
+x8 and un-padded. Transposed convs are native transposed convolutions. The
 Sequential-wrapped convs keep the reference's state-dict names (convX.0.*).
+The convs take a compute dtype (models/layers.py): the resize runs in the
+frames' dtype, every conv in its compute dtype.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from rmnet_tpu_torch.models.layers import Conv2d, ConvTranspose2d, set_compute_dtype
 from rmnet_tpu_torch.ops.pad import pad_divide_by, unpad
 
 
 def _conv(cin, cout, k, s):
-    return nn.Sequential(nn.Conv2d(cin, cout, k, s, (k - 1) // 2), nn.LeakyReLU(0.1))
+    return nn.Sequential(Conv2d(cin, cout, k, s, (k - 1) // 2), nn.LeakyReLU(0.1))
 
 
 def _deconv(cin, cout):
-    return nn.Sequential(nn.ConvTranspose2d(cin, cout, 4, 2, 1), nn.LeakyReLU(0.1))
+    return nn.Sequential(ConvTranspose2d(cin, cout, 4, 2, 1), nn.LeakyReLU(0.1))
 
 
 class TinyFlowNet(nn.Module):
-    def __init__(self):
+    """``dtype`` is every conv's compute dtype (None: the weights')."""
+
+    def __init__(self, dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.conv1 = _conv(6, 64, 7, 2)
         self.conv2 = _conv(64, 128, 5, 2)
@@ -38,13 +45,14 @@ class TinyFlowNet(nn.Module):
         self.deconv4 = _deconv(512, 256)
         self.deconv3 = _deconv(770, 128)
         self.deconv2 = _deconv(386, 64)
-        self.predict_flow5 = nn.Conv2d(512, 2, 3, 1, 1)
-        self.predict_flow4 = nn.Conv2d(770, 2, 3, 1, 1)
-        self.predict_flow3 = nn.Conv2d(386, 2, 3, 1, 1)
-        self.predict_flow2 = nn.Conv2d(194, 2, 3, 1, 1)
-        self.upsampled_flow5_to_4 = nn.ConvTranspose2d(2, 2, 4, 2, 1, bias=False)
-        self.upsampled_flow4_to_3 = nn.ConvTranspose2d(2, 2, 4, 2, 1, bias=False)
-        self.upsampled_flow3_to_2 = nn.ConvTranspose2d(2, 2, 4, 2, 1, bias=False)
+        self.predict_flow5 = Conv2d(512, 2, 3, 1, 1)
+        self.predict_flow4 = Conv2d(770, 2, 3, 1, 1)
+        self.predict_flow3 = Conv2d(386, 2, 3, 1, 1)
+        self.predict_flow2 = Conv2d(194, 2, 3, 1, 1)
+        self.upsampled_flow5_to_4 = ConvTranspose2d(2, 2, 4, 2, 1, bias=False)
+        self.upsampled_flow4_to_3 = ConvTranspose2d(2, 2, 4, 2, 1, bias=False)
+        self.upsampled_flow3_to_2 = ConvTranspose2d(2, 2, 4, 2, 1, bias=False)
+        set_compute_dtype(self, dtype)
 
     def pair_forward(self, img0: torch.Tensor, img1: torch.Tensor) -> torch.Tensor:
         """Flow img0 -> img1 for one frame pair: NCHW (B, 3, H, W) each ->
@@ -53,7 +61,6 @@ class TinyFlowNet(nn.Module):
         Hp, Wp = img0.shape[-2:]
         x = torch.cat([img0, img1], dim=1)
         x = F.interpolate(x, size=(Hp // 2, Wp // 2), mode="bilinear", align_corners=False)
-        x = x.to(self.predict_flow2.weight.dtype)  # resize in the frames' dtype, convs in the weights'
         out_conv2 = self.conv2(self.conv1(x))
         out_conv3 = self.conv3_1(self.conv3(out_conv2))
         out_conv4 = self.conv4_1(self.conv4(out_conv3))

@@ -141,9 +141,12 @@ def _init_conv(conv: nn.Module, g: torch.Generator, kaiming: bool) -> None:
             conv.bias.zero_()
 
 
-def build_models(cfg=None, seed: int = 0, device=None) -> Tuple[RMNet, TinyFlowNet]:
+def build_models(cfg=None, seed: int = 0, device=None,
+                 dtype=None) -> Tuple[RMNet, TinyFlowNet]:
     """Randomly initialised (RMNet, TinyFlowNet) in eval mode on ``device``
-    (default cuda), drawn from ``torch.Generator().manual_seed(seed)``.
+    (default cuda), drawn from ``torch.Generator().manual_seed(seed)``, with
+    float32 parameters and ``dtype`` as the convs' compute dtype (None:
+    float32), as rmnet_tpu/core/engine.py:739 builds them.
 
     The reference scheme (core/train.py:48-53): kaiming-normal heads and
     TinyFlowNet, torch-default ResNet trunks and mask stems, zero biases,
@@ -152,7 +155,7 @@ def build_models(cfg=None, seed: int = 0, device=None) -> Tuple[RMNet, TinyFlowN
     del cfg  # the init scheme has no configuration
     device = torch.device("cuda" if device is None else device)
     g = torch.Generator().manual_seed(seed)
-    rmnet, tfn = RMNet(), TinyFlowNet()
+    rmnet, tfn = RMNet(dtype), TinyFlowNet(dtype)
     for net in (rmnet, tfn):
         for name, mod in net.named_modules():
             if isinstance(mod, (nn.Conv2d, nn.ConvTranspose2d)):

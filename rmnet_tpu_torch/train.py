@@ -10,9 +10,16 @@ decay folded into the gradient (torch.optim.Adam is exactly the JAX
 package's add_decayed_weights + scale_by_adam + ``-lr * u``). TRAIN.REMAT
 recomputes the encoders ("encoders") or whole frames ("step") in the
 backward pass; TRAIN.GRAD_ACCUM_STEPS splits the batch into micro-batches
-whose gradients are averaged before the one update. A non-finite loss skips
-the whole update, moments included (reference core/train.py:187-189).
-Modules train with frozen BatchNorm, in ``eval()`` mode.
+whose gradients are averaged before the one update. TRAIN.BF16 runs every
+conv in bfloat16 on float32 master weights (flax's ``dtype``: parameters,
+gradients, Adam's moments and checkpoints stay float32; the masks, the
+estimate, soft aggregation and the losses too). Modules stay in ``eval()``
+mode: BatchNorm is frozen unless TRAIN.USE_BATCH_NORM, which normalizes the
+encoders with batch statistics and carries their running statistics from
+frame to frame and micro-batch to micro-batch, written to the module once
+per step (rmnet_tpu/core/train.py:104, 148-199). A non-finite loss skips
+the whole update: parameters, moments and running statistics (reference
+core/train.py:187-189).
 
 :func:`train_net` is the reference's training loop: seeded loaders, backbone
 init, resume from a full-state ``.pth`` (epoch and Adam state), the
@@ -21,22 +28,20 @@ frame-step curriculum, cosine learning rate per epoch, validation through
 checkpoints, and SIGTERM / SIGINT that finish the batch, save
 ``ckpt-interrupt.pth`` and return.
 
-Flags that the port does not honour raise (:func:`check_train_flags`):
-TRAIN.BF16 and TRAIN.USE_BATCH_NORM (ROADMAP queue 1 item 2) and
-TRAIN.DATA_PARALLEL > 1 (item 4). Entry points run on the card unless the
-caller passes ``device="cpu"``.
+The one flag that the port does not honour raises (:func:`check_train_flags`):
+TRAIN.DATA_PARALLEL > 1 (ROADMAP queue 1 item 4). Entry points run on the
+card unless the caller passes ``device="cpu"``.
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import logging
 import math
 import os
 import random
-import signal
-import threading
 import time
 import zipfile
 from typing import Callable, Dict, List, Mapping, Optional, Tuple
@@ -54,6 +59,7 @@ from rmnet_tpu_torch.utils.average_meter import AverageMeter
 from rmnet_tpu_torch.utils.checkpoint import (load_backbone_weights, load_weights_auto,
                                               save_checkpoint)
 from rmnet_tpu_torch.utils.metrics import Metrics
+from rmnet_tpu_torch.utils.signals import stop_on_signals
 from rmnet_tpu_torch.utils.summary import SummaryWriter
 
 NETWORKS = ("RMNet", "TinyFlowNet")
@@ -72,14 +78,6 @@ def check_train_flags(cfg) -> None:
     if not isinstance(accum, int) or accum < 1 or tr.BATCH_SIZE % accum:
         raise ValueError(f"TRAIN.GRAD_ACCUM_STEPS={accum!r} must be a positive integer that "
                          f"divides TRAIN.BATCH_SIZE={tr.BATCH_SIZE}")
-    if tr.BF16:
-        raise NotImplementedError("TRAIN.BF16 = True: bf16 training is not ported yet "
-                                  "(ROADMAP queue 1 item 2, TRAIN.BF16)")
-    if tr.USE_BATCH_NORM:
-        raise NotImplementedError(
-            "TRAIN.USE_BATCH_NORM = True: trainable BatchNorm is not ported yet (ROADMAP "
-            "queue 1 item 2, trainable BN); under TRAIN.REMAT its running statistics would "
-            "update in the forward pass and again in the recompute")
     if tr.DATA_PARALLEL > 1:
         raise NotImplementedError(f"TRAIN.DATA_PARALLEL = {tr.DATA_PARALLEL}: data parallel "
                                   f"training is not ported yet (ROADMAP queue 1 item 4)")
@@ -116,7 +114,9 @@ def make_loss_fn(cfg, apply: RMNetApply, tflownet: TinyFlowNet,
     RMNet's with ``remat`` (default TRAIN.REMAT) applied to ``apply``.
 
     A batch holds frames (B, T, H, W, 3), masks (B, T, K, H, W) one-hot,
-    flows (B, T, H, W, 2) and n_objects (B, T), as the JAX package's."""
+    flows (B, T, H, W, 2) and n_objects (B, T), as the JAX package's. With
+    ``apply.train_bn`` RMNet's loss takes the running statistics too and
+    returns (loss, the statistics after the batch)."""
     ignore = cfg.CONST.IGNORE_IDX
     network = cfg.TRAIN.NETWORK
     if network not in NETWORKS:
@@ -124,13 +124,15 @@ def make_loss_fn(cfg, apply: RMNetApply, tflownet: TinyFlowNet,
     if network == "RMNet":
         apply = with_remat(apply, cfg.TRAIN.REMAT if remat is None else remat)
 
-    def rmnet_loss(batch):
-        est = apply.forward_video(batch["frames"], batch["masks"], batch["flows"],
-                                  batch["n_objects"])
+    def rmnet_loss(batch, bn=None):
+        out = apply.forward_video(batch["frames"], batch["masks"], batch["flows"],
+                                  batch["n_objects"], bn)
+        est, bn = out if apply.train_bn else (out, None)
         probs_cl = est[:, 1:].movedim(2, -1)                 # (B, T-1, H, W, K)
         labels = batch["masks"][:, 1:].argmax(dim=2)         # (B, T-1, H, W)
         log_probs = torch.log(probs_cl.clamp(min=1e-30))
-        return lovasz_loss(probs_cl, labels, ignore) + nll_loss(log_probs, labels, ignore)
+        loss = lovasz_loss(probs_cl, labels, ignore) + nll_loss(log_probs, labels, ignore)
+        return (loss, bn) if apply.train_bn else loss
 
     def tfn_loss(batch):
         return l1_loss(tflownet.video_forward(batch["frames"]), batch["flows"])
@@ -148,10 +150,15 @@ def make_train_step(cfg, apply: RMNetApply, tflownet: TinyFlowNet,
     micro-batches along B; their gradients are summed, divided by n, and
     the loss is the mean of theirs (rmnet_tpu/core/train.py:120-201). The
     Lovász term sorts pixels per micro-batch, so this is the mean of the
-    micro-batch gradients, not the gradient of one loss over the batch."""
+    micro-batch gradients, not the gradient of one loss over the batch.
+
+    With ``apply.train_bn`` (RMNet) the running statistics go from
+    micro-batch to micro-batch and are written to the module after the
+    update, only when the loss is finite."""
     loss_fn = make_loss_fn(cfg, apply, tflownet)
     accum = int(cfg.TRAIN.GRAD_ACCUM_STEPS)
     params = [p for group in optimizer.param_groups for p in group["params"]]
+    train_bn = cfg.TRAIN.NETWORK == "RMNet" and apply.train_bn
 
     def step(batch, lr: float) -> float:
         optimizer.zero_grad(set_to_none=True)
@@ -160,9 +167,14 @@ def make_train_step(cfg, apply: RMNetApply, tflownet: TinyFlowNet,
             raise ValueError(f"TRAIN.GRAD_ACCUM_STEPS={accum} must divide the batch size "
                              f"(got B={B})")
         losses = []
+        bn = apply.running_stats() if train_bn else None
         for i in range(accum):
             micro = slice(i * B // accum, (i + 1) * B // accum)
-            loss = loss_fn({k: v[micro] for k, v in batch.items()})
+            micro_batch = {k: v[micro] for k, v in batch.items()}
+            if train_bn:
+                loss, bn = loss_fn(micro_batch, bn)
+            else:
+                loss = loss_fn(micro_batch)
             loss.backward()
             losses.append(loss.detach())
         if accum > 1:
@@ -174,6 +186,8 @@ def make_train_step(cfg, apply: RMNetApply, tflownet: TinyFlowNet,
             for group in optimizer.param_groups:
                 group["lr"] = lr
             optimizer.step()
+            if train_bn:
+                apply.load_running_stats(bn)
         return value
 
     return step
@@ -187,7 +201,8 @@ def _device(device) -> torch.device:
 
 
 class Trainer:
-    """RMNet and TinyFlowNet on one device, the optimizer of the network
+    """RMNet and TinyFlowNet on one device with float32 parameters (their
+    convs in bfloat16 under TRAIN.BF16), the optimizer of the network
     TRAIN.NETWORK selects, and its train step."""
 
     def __init__(self, cfg, rmnet_state: Mapping[str, torch.Tensor],
@@ -196,13 +211,16 @@ class Trainer:
         self.device = _device(device)
         check_train_flags(cfg)
         self.cfg = cfg
-        # frozen BatchNorm: eval() mode, every parameter trainable
-        self.rmnet = _on_device(RMNet, rmnet_state, self.device,
+        # eval() mode (BatchNorm frozen unless train_bn), every parameter
+        # trainable, float32 masters
+        compute = torch.bfloat16 if cfg.TRAIN.BF16 else None
+        self.rmnet = _on_device(functools.partial(RMNet, compute), rmnet_state, self.device,
                                 torch.float32).requires_grad_(True)
-        self.tflownet = _on_device(TinyFlowNet, tflownet_state, self.device,
-                                   torch.float32).requires_grad_(True)
+        self.tflownet = _on_device(functools.partial(TinyFlowNet, compute), tflownet_state,
+                                   self.device, torch.float32).requires_grad_(True)
         self.apply = RMNetApply(self.rmnet, memorize_every=cfg.TRAIN.MEMORIZE_EVERY,
-                                use_flash_attention=cfg.TRAIN.FLASH_ATTENTION)
+                                use_flash_attention=cfg.TRAIN.FLASH_ATTENTION,
+                                train_bn=cfg.TRAIN.USE_BATCH_NORM)
         net = self.rmnet if cfg.TRAIN.NETWORK == "RMNet" else self.tflownet
         self.optimizer = make_optimizer(cfg, net.parameters())
         self._step = make_train_step(cfg, self.apply, self.tflownet, self.optimizer)
@@ -250,28 +268,6 @@ class TrainStats:
     non_finite: int = 0
     batch_times: List[Tuple[int, float, float]] = dataclasses.field(default_factory=list)
     val_s: List[float] = dataclasses.field(default_factory=list)
-
-
-@contextlib.contextmanager
-def _stop_on_signals():
-    """A flag that SIGTERM or SIGINT sets (the handlers are installed only
-    on the main thread, where Python runs them); the previous handlers come
-    back on exit."""
-    stop = threading.Event()
-
-    def request(signum, frame):
-        logging.warning("signal %s received: finishing the batch, then checkpointing", signum)
-        stop.set()
-
-    previous = {}
-    if threading.current_thread() is threading.main_thread():
-        for sig in (signal.SIGTERM, signal.SIGINT):
-            previous[sig] = signal.signal(sig, request)
-    try:
-        yield stop
-    finally:
-        for sig, handler in previous.items():
-            signal.signal(sig, handler)
 
 
 def train_net(cfg, device=None, stats: Optional[TrainStats] = None) -> Optional[Metrics]:
@@ -337,7 +333,8 @@ def train_net(cfg, device=None, stats: Optional[TrainStats] = None) -> Optional[
     val_engine = None  # one engine; each epoch swaps its weights
     train_writer = SummaryWriter(log_dir, "train")
     val_writer = SummaryWriter(log_dir, "test")
-    with _stop_on_signals() as stop, contextlib.closing(train_writer), \
+    with stop_on_signals("finishing the batch, then checkpointing") as stop, \
+            contextlib.closing(train_writer), \
             contextlib.closing(val_writer):
         for epoch_idx in range(init_epoch + 1, cfg.TRAIN.N_EPOCHS + 1):
             epoch_start = time.time()

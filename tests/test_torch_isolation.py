@@ -42,7 +42,7 @@ def test_sources_found():
     assert {"engine.py", "train.py", "flash_attention.py", "losses.py", "rmnet.py",
             "chip_smoke.py", "runner.py", "test.py", "inference.py", "datasets.py",
             "metrics.py", "transforms.py", "flow_affine.py", "build_index.py",
-            "checkpoint.py"} <= names
+            "checkpoint.py", "layers.py", "eval_server.py", "eval_farm.py"} <= names
     kernels = {p.name for p in (ROOT / "rmnet_tpu_torch" / "csrc").glob("*.cu")}
     assert {"flash_read_fwd.cu", "flash_read_bwd.cu"} <= kernels
     assert (ROOT / "rmnet_tpu_torch" / "csrc" / "flow_affine.cpp").exists()

@@ -215,9 +215,6 @@ def test_tinyflownet_training_changes_only_tinyflownet(files, tmp_path):
 
 # -------------------------------------------------------------- refusals
 REFUSED = {
-    "BF16": (dict(BF16=True), NotImplementedError, "queue 1 item 2, TRAIN.BF16"),
-    "USE_BATCH_NORM": (dict(USE_BATCH_NORM=True), NotImplementedError,
-                       "queue 1 item 2, trainable BN"),
     "DATA_PARALLEL": (dict(DATA_PARALLEL=2), NotImplementedError, "queue 1 item 4"),
     "REMAT": (dict(REMAT="frames"), ValueError, "unknown remat mode"),
     "GRAD_ACCUM_STEPS": (dict(GRAD_ACCUM_STEPS=3), ValueError, "must be a positive integer that "
