@@ -23,9 +23,11 @@ Phases, in order (each raises on failure; nothing is caught):
           phase's largest read (16 rows, S=33), the eval phase's (10 rows,
           S=33, f32), the graphs phase's (S=3), the training read in f32
           and bf16 and phase dp's reads (6 rows in f32 and bf16, 3 rows in
-          f32) (f32 at 2e-4; bf16 within 1e-2 of the plain output's
-          largest magnitude; lse at 2e-4); two calls at S33_bf16 and at
-          both training reads give bit-identical out and lse;
+          f32), phase spatial's query shard (30x27 rows against a 30x54
+          bank of S=12, f32 and bf16) (f32 at 2e-4; bf16 within 1e-2 of the
+          plain output's largest magnitude; lse at 2e-4); two calls at
+          S33_bf16, at both training reads and at both query shards give
+          bit-identical out and lse;
   kernel_bwd  hold the backward kernel against its plain version on the same
           cases plus the training read (dQ, dK, dV each within 1e-4 of the
           plain gradient's largest magnitude in f32, 1e-2 in bf16); two calls
@@ -143,6 +145,20 @@ Phases, in order (each raises on failure; nothing is caught):
           process against the Trainer's step (the same loss bit for bit,
           gradients within 1e-3, parameters bit-identical wherever the
           gradients are);
+  spatial spatial_forward_video (width-sharded whole-clip inference) on the
+          one card (build/chip_smoke/spatial): the single forward_video
+          first, in this process, then two gloo ranks on cuda:0 (27 of
+          the 54 /16 columns each), 480x854, T=12, 2 objects
+          (the second appearing at frame 4), memorize_every 5, seeded flows
+          of up to 24 columns, flash read, f32 with TF32 off and cuDNN
+          deterministic, the weights of seed 0: every rank's estimate of the
+          whole clip within 1e-4 of the single forward's, every frame's
+          boxes (memorize's and the warped mask's) equal as integers, a
+          repeated call bit-identical and building no new plan, T-1 read
+          launches per rank; ms per frame against the single forward, peak
+          memory per rank, the collectives per frame by kind (calls, bytes,
+          ms); the read at its query shard timed (kernel, plain, SDPA over
+          the dense bank, bound);
   eval    the evaluation and export entry points at 480x854: a synthetic DAVIS
           tree of three VAL videos (24, 17 and 9 frames; a third object
           appears in the second at frame 8), a reference-format checkpoint
@@ -313,10 +329,13 @@ def sass_mma_counts(lib) -> dict:
 F32_TOL, BF16_REL_TOL = 2e-4, 1e-2
 
 
-def bank_case(N, S, h, w, dtype, seed, invalid=(), all_invalid_row=None, loose=64):
+def bank_case(N, S, h, w, dtype, seed, invalid=(), all_invalid_row=None, loose=64,
+              q_cols=None):
     """Bank-like read inputs on the card at /16 grid (h, w): boxes made as
     memorize makes them (dilated box of a thresholded mask, rasterized on
-    the /16 grid), k/v zero outside the boxes, some slots invalid."""
+    the /16 grid), k/v zero outside the boxes, some slots invalid; with
+    ``q_cols`` (start, end) the query holds those columns only, as a rank of
+    a width mesh reads its shard against the whole bank."""
     from rmnet_tpu_torch.ops.att_map import _bboxes, _raster_small
 
     g = torch.Generator().manual_seed(seed)
@@ -341,6 +360,8 @@ def bank_case(N, S, h, w, dtype, seed, invalid=(), all_invalid_row=None, loose=6
         valid[:, s] = False
     if all_invalid_row is not None:
         valid[all_invalid_row] = False
+    if q_cols is not None:
+        qk = qk[:, :, q_cols[0]:q_cols[1]].contiguous()
     return dict(
         m_key=(mk * cell).to("cuda", dtype), m_val=(mv * cell).to("cuda", dtype),
         q_key=qk.to("cuda", dtype), slot_valid=valid.to("cuda"),
@@ -382,10 +403,16 @@ KERNEL_CASES = {
     "dp_N6_S3_f32": (6, 3, 30, 30, torch.float32, 17, (1,)),
     "dp_N6_S3_bf16": (6, 3, 30, 30, torch.bfloat16, 18, (1,)),
     "dp_N3_S3_f32": (3, 3, 30, 30, torch.float32, 19, (1,)),
+    # the read of phase spatial's ranks: a 30 x 27 query shard (the first of
+    # two ranks' columns at 480x854) against the whole bank, capacity 11 plus
+    # the ephemeral slot, the slot being written this frame invalid; and bf16
+    "spatial_S12_f32": (2, 12, 30, 54, torch.float32, 20, (10,), None, 64, (0, 27)),
+    "spatial_S12_bf16": (2, 12, 30, 54, torch.bfloat16, 21, (10,), None, 64, (0, 27)),
 }
 # inference-only reads that the backward never takes (its plain version
-# would hold tens of GB at 10 or 16 rows of S = 33)
-FWD_ONLY_CASES = ("streams_N16_S33_bf16", "streams_N16_S33_f32", "eval_N10_S33_f32")
+# would hold tens of GB at 10 or 16 rows of S = 33; it takes no query shard)
+FWD_ONLY_CASES = ("streams_N16_S33_bf16", "streams_N16_S33_f32", "eval_N10_S33_f32",
+                  "spatial_S12_f32", "spatial_S12_bf16")
 
 
 def read_args(c) -> tuple:
@@ -393,7 +420,7 @@ def read_args(c) -> tuple:
     their tile metadata."""
     from rmnet_tpu_torch.ops.flash_attention import tile_metadata
 
-    h, w = c["q_key"].shape[1:3]
+    h, w = c["m_key"].shape[2:4]
     _, z, order, counts = tile_metadata(c["slot_valid"], c["bboxes"], h, w)
     return (c["m_key"], c["m_val"], c["q_key"], c["slot_valid"], order, counts, z)
 
@@ -411,7 +438,7 @@ def plain_split_read(c):
         flash_read_fwd_merge_reference, flash_read_fwd_partials_reference, fwd_splits_for)
 
     mk, mv, q, valid, order, counts, z = read_args(c)
-    splits = fwd_splits_for(mk, q.device)
+    splits = fwd_splits_for(mk, q.device, q.shape[2])
     m, l, acc = flash_read_fwd_partials_reference(mk, mv, q, valid, order, counts, splits)
     out, lse = flash_read_fwd_merge_reference(m, l, acc, z, q.dtype)
     return out.reshape(q.shape[:3] + (-1,)), lse, splits
@@ -474,8 +501,10 @@ def check_fwd_deterministic(name) -> None:
         raise AssertionError(f"forward kernel {name} is not deterministic: {same}")
 
 
-# the forward's determinism cases: the engine's type and the training reads'
-FWD_DETERMINISM_CASES = ("S33_bf16", "train_S3_f32", "train_S3_bf16")
+# the forward's determinism cases: the engine's type, the training reads' and
+# the width mesh's query shard
+FWD_DETERMINISM_CASES = ("S33_bf16", "train_S3_f32", "train_S3_bf16", "spatial_S12_f32",
+                         "spatial_S12_bf16")
 
 
 def phase_kernel() -> None:
@@ -785,7 +814,7 @@ def _time_ms(fn, iters, flush):
 def _inbox_positions(c) -> int:
     """In-box valid memory positions of read inputs ``c``: the positions
     whose keys and values can be nonzero, the work a read needs."""
-    h, w = c["q_key"].shape[1:3]
+    h, w = c["m_key"].shape[2:4]
     ys = torch.arange(h, device=c["q_key"].device) * 16
     xs = torch.arange(w, device=c["q_key"].device) * 16
     b = c["bboxes"][:, :, :, None, None]
@@ -803,14 +832,16 @@ def _bound(flops, nbytes, dtype) -> tuple:
 def read_bound(c) -> tuple:
     """Least time for the read on these inputs: the in-box valid memory
     positions' K/V read once, q read once, out and lse written once; the
-    operations 2*Q*(Ck+Cv) per such position, at the inputs' peak rate."""
+    operations 2*Q*(Ck+Cv) per such position, at the inputs' peak rate (Q
+    the query's rows, fewer than the bank's h*w for a query shard)."""
     mk, mv, q = c["m_key"], c["m_val"], c["q_key"]
     N, S, h, w, Ck = mk.shape
     Cv = mv.shape[-1]
+    Q = q.shape[1] * q.shape[2]
     inbox = _inbox_positions(c)
     es = q.element_size()
-    flops = 2.0 * h * w * inbox * (Ck + Cv)
-    nbytes = (inbox * (Ck + Cv) + N * h * w * (Ck + Cv)) * es + N * h * w * 4
+    flops = 2.0 * Q * inbox * (Ck + Cv)
+    nbytes = (inbox * (Ck + Cv) + N * Q * (Ck + Cv)) * es + N * Q * 4
     return (*_bound(flops, nbytes, q.dtype), inbox, flops)
 
 
@@ -893,8 +924,8 @@ def fwd_time_row(c, flush, limit=EXECUTED_LIMIT) -> dict:
     N, S, h, w, _ = mk.shape
     bound_ms, bound_by, inbox, flops = read_bound(c)
     executed = read_fwd_executed_flops(kargs)
-    splits = fwd_splits_for(mk, q.device)
-    qp = -(-h * w // _QUERY_BLOCK) * _QUERY_BLOCK
+    splits = fwd_splits_for(mk, q.device, q.shape[2])
+    qp = -(-q.shape[1] * q.shape[2] // _QUERY_BLOCK) * _QUERY_BLOCK
     row = dict(
         ms=_time_ms(lambda: flash_read_fwd(*kargs), 20, flush),
         plain_ms=_time_ms(lambda: flash_memory_read_reference(*kargs), 5, flush),
@@ -904,7 +935,7 @@ def fwd_time_row(c, flush, limit=EXECUTED_LIMIT) -> dict:
         positions=N * S * h * w, active_tiles=int(counts.sum()), tiles=order.numel(),
         splits=splits, scratch_mb=N * splits * qp * (c["m_val"].shape[-1] + 2) * 4 / 1e6,
         by_kernel=kernel_ms(flash_read_fwd, kargs, "flash_read_fwd"),
-        shape=dict(N=N, S=S, h=h, w=w, dtype=str(q.dtype)))
+        shape=dict(N=N, S=S, h=h, w=w, w_q=q.shape[2], dtype=str(q.dtype)))
     ratio = executed / flops
     if q.dtype == torch.bfloat16 and limit is not None and ratio > limit:
         raise AssertionError(f"the forward executes {ratio:.3f}x the useful work, "
@@ -935,7 +966,7 @@ def sdpa_read(c):
     bias = torch.zeros(N, M, dtype=q.dtype, device=q.device)
     bias.masked_fill_(~c["slot_valid"].repeat_interleave(h * w, dim=1), -math.inf)
     return lambda: torch.nn.functional.scaled_dot_product_attention(
-        q.reshape(N, 1, h * w, Ck), mk.reshape(N, 1, M, Ck),
+        q.reshape(N, 1, -1, Ck), mk.reshape(N, 1, M, Ck),
         mv.reshape(N, 1, M, -1), attn_mask=bias[:, None, None, :])
 
 
@@ -1275,7 +1306,7 @@ class pinned_splits:
         self.mod, self.splits, self.real = fa, splits, fa.fwd_splits_for
 
     def __enter__(self):
-        self.mod.fwd_splits_for = lambda m_key, device: self.splits
+        self.mod.fwd_splits_for = lambda *args: self.splits
         return self
 
     def __exit__(self, *exc):
@@ -3238,6 +3269,196 @@ def phase_dp(smi, models) -> tuple:
     return report, fwd, bwd
 
 
+# ---------------------------------------------------------------- spatial
+# spatial_forward_video on the one card: two gloo ranks on cuda:0 (NCCL takes
+# one rank per device), each holding 27 of the 54 columns of the /16 grid of
+# the 480x854 clip padded to 480x864
+SPATIAL_DEVICES = ("cuda:0", "cuda:0")
+SPATIAL_T, SPATIAL_APPEAR = 12, 4  # the second object appears at frame 4
+SPATIAL_TOL = 1e-4  # the probabilities, against the single forward (f32, TF32 off)
+SPATIAL_TIMEOUT_S, SPATIAL_DEADLINE_S = 120, 480
+SPATIAL_DIR = OUT_DIR / "spatial"
+
+
+def spatial_clip() -> tuple:
+    """The phase's clip in forward_video's layout (B=1): make_clip's frames
+    and masks (2 objects, the second appearing at frame SPATIAL_APPEAR) and
+    seeded flows of up to 24 columns and 6 rows, so that a vector may point
+    into the other rank's columns; on the card."""
+    frames, masks, n_objects = make_clip(SPATIAL_T, HEIGHT, WIDTH, N_OBJECTS,
+                                         appear=SPATIAL_APPEAR)
+    rs = np.random.RandomState(7)
+    shape = (SPATIAL_T, HEIGHT, WIDTH)
+    flows = np.stack([rs.uniform(-24, 24, shape), rs.uniform(-6, 6, shape)], -1)
+    cuda = [torch.from_numpy(x[None]).cuda() for x in (frames, masks, flows.astype(np.float32))]
+    return (*cuda, n_objects[None])
+
+
+def _spatial_settings() -> None:
+    """f32 with TF32 off and cuDNN deterministic, in every process of the phase."""
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+
+
+class recorded_boxes:
+    """Every box RMNetApply._att computes in the block (memorize's of the
+    previous estimate, then the warped mask's, per frame), in call order,
+    as int32 tensors on the host."""
+
+    def __enter__(self):
+        from rmnet_tpu_torch.models.rmnet import RMNetApply
+
+        self.real, self.boxes = RMNetApply._att, []
+
+        def att(apply, *args, **kwargs):
+            out = self.real(apply, *args, **kwargs)
+            self.boxes.append(out[1].cpu())
+            return out
+
+        RMNetApply._att = att
+        return self.boxes
+
+    def __exit__(self, *exc):
+        from rmnet_tpu_torch.models.rmnet import RMNetApply
+
+        RMNetApply._att = self.real
+
+
+def _peak_gb(fn) -> tuple:
+    """``fn()`` -> (its result, the peak device memory it allocated above
+    what was held before it, GB)."""
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (torch.cuda.max_memory_allocated() - held) / 1e9
+
+
+def spatial_single() -> dict:
+    """The single forward_video on the phase's clip (the weights of seed 0,
+    memorize_every 5, flash read): the estimate and boxes of a first run
+    with the read's launches counted, then a timed run -> a report; the
+    estimate and boxes go to SPATIAL_DIR/single.pt for the ranks."""
+    from rmnet_tpu_torch.models.rmnet import RMNetApply
+    from rmnet_tpu_torch.models.weights import build_models
+    from rmnet_tpu_torch.ops.flash_attention import flash_memory_read as fmr
+
+    rmnet, _ = build_models(seed=0)
+    apply = RMNetApply(rmnet, memorize_every=MEMORIZE_EVERY)
+    clip = spatial_clip()
+    fmr.launches = 0
+    with torch.no_grad(), recorded_boxes() as boxes:
+        est, peak = _peak_gb(lambda: apply.forward_video(*clip))
+    launches = fmr.launches
+    with torch.no_grad():
+        wall = _walls(lambda: apply.forward_video(*clip), 1)[0]
+    SPATIAL_DIR.mkdir(parents=True, exist_ok=True)
+    torch.save(dict(est=est.cpu(), boxes=boxes), SPATIAL_DIR / "single.pt")
+    return dict(frame_ms=wall / (SPATIAL_T - 1) * 1e3, peak_gb=peak, launches=launches)
+
+
+def spatial_worker(mesh) -> dict:
+    """One rank of phase spatial: spatial_forward_video on the phase's clip
+    (the weights of seed 0, as in main()) with the read's launches counted
+    and the boxes recorded, held against the single forward's estimate and
+    boxes; then a second call, timed from a barrier, with its collectives
+    counted by kind, the plans cached before and after, and its estimate
+    against the first."""
+    from rmnet_tpu_torch.models.rmnet import RMNetApply
+    from rmnet_tpu_torch.models.weights import build_models
+    from rmnet_tpu_torch.ops.flash_attention import flash_memory_read as fmr
+    from rmnet_tpu_torch.parallel import barrier, space
+
+    _spatial_settings()
+    rmnet, _ = build_models(seed=0)
+    apply = RMNetApply(rmnet, memorize_every=MEMORIZE_EVERY)
+    clip = spatial_clip()
+    fmr.launches = fmr.captured = fmr.replayed = 0
+    with recorded_boxes() as boxes:
+        est, peak = _peak_gb(lambda: space.spatial_forward_video(apply, *clip, mesh))
+    launches = fmr.launches
+    plans = [len(space._SPATIAL_PLANS)]
+    barrier(mesh)
+    mesh.counts.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    again = space.spatial_forward_video(apply, *clip, mesh)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    plans.append(len(space._SPATIAL_PLANS))
+    single = torch.load(SPATIAL_DIR / "single.pt", weights_only=True)
+    err = (est.cpu() - single["est"]).abs().max().item()
+    same_boxes = len(boxes) == len(single["boxes"]) and all(
+        torch.equal(a, b) for a, b in zip(boxes, single["boxes"]))
+    return dict(err=err, same_boxes=same_boxes, n_boxes=len(boxes),
+                repeat_identical=torch.equal(est, again), plans=plans, launches=launches,
+                frame_ms=wall / (SPATIAL_T - 1) * 1e3, peak_gb=peak,
+                counts={k: list(v) for k, v in mesh.counts.items()},
+                shape=list(est.shape), finite=bool(torch.isfinite(est).all()))
+
+
+def spatial_read_times(smi) -> dict:
+    """The forward at phase spatial's read (KERNEL_CASES spatial_S12_f32):
+    kernel, plain and SDPA ms and the bound (fwd_time_row)."""
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    read = fwd_time_row(bank_case(*KERNEL_CASES["spatial_S12_f32"]), flush, None)
+    log_fwd_times("phase spatial's read (a 30x27 query shard, S=12, f32)", read, smi)
+    return read
+
+
+def phase_spatial(smi) -> tuple:
+    """spatial_forward_video on the card: the single forward first
+    (spatial_single), then two gloo ranks on cuda:0 (spatial_worker): every
+    rank's estimate of the whole clip within SPATIAL_TOL of the single
+    forward's, every frame's boxes equal, a repeated call bit-identical with
+    no new plan, T-1 read launches per rank; the read at its query shard
+    timed (spatial_read_times) -> (report, forward launches of the
+    counted runs)."""
+    from rmnet_tpu_torch.parallel import launch
+
+    t_phase = time.perf_counter()
+    deterministic = torch.backends.cudnn.deterministic
+    _spatial_settings()
+    try:
+        single = spatial_single()
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    gc.collect()
+    torch.cuda.empty_cache()
+    ranks = launch(spatial_worker, (), SPATIAL_DEVICES, "gloo", SPATIAL_TIMEOUT_S,
+                   SPATIAL_DEADLINE_S)
+    frames = SPATIAL_T - 1
+    per_frame = {k: dict(calls=v[0] / frames, bytes=v[1] / frames, ms=v[2] / frames * 1e3)
+                 for k, v in ranks[0]["counts"].items()}
+    for rank, r in enumerate(ranks):
+        log(f"spatial rank {rank} of 2 (gloo, cuda:0 twice, f32, TF32 off, cuDNN deterministic):"
+            f" {HEIGHT}x{WIDTH}, T={SPATIAL_T}, {N_OBJECTS} objects, memorize_every "
+            f"{MEMORIZE_EVERY}: "
+            f"max|est - single| {r['err']:.3e} (bound {SPATIAL_TOL}), {r['n_boxes']} boxes "
+            f"equal {r['same_boxes']}, repeated call bit-identical {r['repeat_identical']}, "
+            f"plans {r['plans']}, read launches {r['launches']}; {r['frame_ms']:.3f} ms per "
+            f"frame against the single forward's {single['frame_ms']:.3f}; peak memory "
+            f"{r['peak_gb']:.3f} GB against {single['peak_gb']:.3f} [{smi}]")
+    for k, v in per_frame.items():
+        log(f"spatial collective {k}: {v['calls']:.2f} calls, {v['bytes'] / 1e6:.4f} MB, "
+            f"{v['ms']:.3f} ms per frame on rank 0 (staged through pinned host memory) [{smi}]")
+    read = spatial_read_times(smi)
+    log(f"spatial: the phase {time.perf_counter() - t_phase:.1f} s")
+    bad = [f"rank {i}: {r}" for i, r in enumerate(ranks)
+           if not (r["err"] <= SPATIAL_TOL and r["same_boxes"] and r["repeat_identical"]
+                   and r["finite"] and r["plans"] == [1, 1] and r["launches"] == frames
+                   and r["n_boxes"] == 2 * frames
+                   and r["shape"] == [1, SPATIAL_T, N_OBJECTS + 1, HEIGHT, WIDTH])]
+    if single["launches"] != frames:
+        bad.append(f"the single forward launched the read {single['launches']} times")
+    if bad:
+        raise AssertionError("phase spatial: " + "; ".join(bad))
+    report = dict(card=smi, single=single, ranks=ranks, collectives_per_frame=per_frame,
+                  read=read)
+    return report, sum(r["launches"] for r in ranks)
+
+
 # -------------------------------------------------------------------- a/b
 def ab_worker(root) -> dict:
     """The main path's engine (480x854, 2 objects, memorize_every 5, T=48,
@@ -3356,6 +3577,9 @@ def main(argv=None) -> int:
     gc.collect()
     report["dp"], by_path["dp"], bwd_by_path["dp"] = phase_dp(smi, models)
     shutil.rmtree(TN_DIR / "out" / "checkpoints")  # about 0.5 GB each, weights and Adam state
+    gc.collect()
+    report["spatial"], by_path["spatial"] = phase_spatial(smi)
+    bwd_by_path["spatial"] = 0
     gc.collect()
     report["eval"] = phase_eval(smi, models)
     by_path["eval"] = report["eval"]["launches"]["eager"] + report["eval"]["launches"]["replayed"]

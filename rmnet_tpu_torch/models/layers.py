@@ -16,6 +16,11 @@ re-runs it in the backward pass) counts nothing twice. :func:`train_batch_norm`
 runs a function with every :class:`BatchNorm2d` of a module in that mode,
 and, given a data-parallel mesh, on the statistics of the global batch
 (rmnet_tpu/nn/layers.py:150-175 under the JAX mesh: SyncBatchNorm).
+
+Width mesh (parallel/space.py): while ``space`` is set, a :class:`Conv2d`
+holds the rank's columns of the frame and convolves them with the halo that
+its kernel reads from the neighbours' (``WidthMesh.conv2d``); frozen
+BatchNorm is per pixel and needs nothing.
 """
 
 from __future__ import annotations
@@ -32,9 +37,11 @@ _STATS = ("running_mean", "running_var")
 
 
 class Conv2d(nn.Conv2d):
-    """nn.Conv2d computing in ``compute_dtype`` (None: the weight's)."""
+    """nn.Conv2d computing in ``compute_dtype`` (None: the weight's); under
+    a width mesh (``space``) on the rank's columns."""
 
     compute_dtype: Optional[torch.dtype] = None
+    space = None
 
     @property
     def dtype(self) -> torch.dtype:
@@ -43,7 +50,10 @@ class Conv2d(nn.Conv2d):
     def forward(self, x):
         dt = self.dtype
         bias = None if self.bias is None else self.bias.to(dt)
-        return self._conv_forward(x.to(dt), self.weight.to(dt), bias)
+        if self.space is None:
+            return self._conv_forward(x.to(dt), self.weight.to(dt), bias)
+        return self.space.conv2d(x.to(dt), self.weight.to(dt), bias, self.stride,
+                                 self.padding, self.dilation, self.groups)
 
 
 class ConvTranspose2d(nn.ConvTranspose2d):

@@ -5,6 +5,8 @@ frozen (every module stays in eval mode) unless ``train_batch_norm`` runs
 it on batch statistics (TRAIN.USE_BATCH_NORM); the convs take a compute
 dtype (models/layers.py). Attribute names follow the reference encoders
 (conv1, bn1, res2, res3, res4), so reference state dicts load as they are.
+Under a width mesh (``space``, parallel/space.py) the trunk holds the rank's
+columns: its convolutions and the stem's max pool exchange halos.
 """
 
 from __future__ import annotations
@@ -53,6 +55,8 @@ def _make_layer(cin: int, planes: int, blocks: int, stride: int) -> nn.Sequentia
 class ResNet50Trunk(nn.Module):
     """conv1..layer3 of ResNet-50 on NCHW; returns (r4 1/16, r3 1/8, r2 1/4, c1 1/2)."""
 
+    space = None  # a width mesh: the rank's columns (parallel/space.py)
+
     def __init__(self):
         super().__init__()
         self.conv1 = Conv2d(3, 64, 7, stride=2, padding=3, bias=False)
@@ -69,7 +73,10 @@ class ResNet50Trunk(nn.Module):
         if extra_stem is not None:
             x = x + extra_stem
         c1 = F.relu(self.bn1(x))
-        r2 = self.res2(F.max_pool2d(c1, 3, 2, 1))
+        if self.space is None:
+            r2 = self.res2(F.max_pool2d(c1, 3, 2, 1))
+        else:
+            r2 = self.res2(self.space.max_pool(c1, 3, 2, 1))
         r3 = self.res3(r2)
         r4 = self.res4(r3)
         return r4, r3, r2, c1

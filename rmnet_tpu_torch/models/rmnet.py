@@ -32,7 +32,17 @@ control flow lives in :class:`RMNetApply`, as in the JAX package:
     is written in place, so a rematerialised frame counts nothing twice.
     With a data-parallel ``mesh`` the statistics are the global batch's
     (one collective per BatchNorm call, repeated by a recompute on every
-    rank alike). ``step`` is the serving step and never trains them.
+    rank alike). ``step`` is the serving step and never trains them;
+  * width-sharded inference (``space``, a width mesh of parallel/space.py,
+    which ``spatial_forward_video`` sets): ``forward_video`` runs on the
+    rank's columns of the padded frame. The encoders, heads and decoder
+    exchange halos (their modules' ``space``); ``memorize`` gathers each
+    frame's keys and values along the /16 width, so every rank's bank is the
+    single forward's; the boxes are reduced over the ranks, so they are the
+    whole frame's; the read takes the rank's query columns against the whole
+    bank; each frame's estimate is gathered once, for the next frame's warp
+    and the returned clip. Soft aggregation, injection, suppression and the
+    softmax over K are per pixel.
 
 Constants 32.0605 / -16.1181 (reference models/rmnet.py:442-448) equal
 log(eps / (1 - eps)) for the aggregation clamp eps = 1e-7.
@@ -61,20 +71,25 @@ from rmnet_tpu_torch.ops.flash_attention import flash_memory_read
 from rmnet_tpu_torch.ops.pad import divide_pads, pad_divide_by, unpad
 from rmnet_tpu_torch.ops.warp import backward_warp
 from rmnet_tpu_torch.parallel.mesh import DataMesh
+from rmnet_tpu_torch.parallel.space import WidthMesh
 
 NEW_OBJECT_SCALE = 32.0605
 NEW_OBJECT_BIAS = -16.1181
 SUPPRESSED = -16.1181
 
 
-def _present_objects(one_hot: torch.Tensor) -> torch.Tensor:
+def _present_objects(one_hot: torch.Tensor, space: Optional[WidthMesh] = None) -> torch.Tensor:
     """(B, K) flags: which slots the argmax label map of (B, K, H, W) one-hot
     masks contains. Slot k >= 1 is present iff its channel fires anywhere;
-    slot 0 wherever no k >= 1 channel fires."""
+    slot 0 wherever no k >= 1 channel fires. With ``space``, of the whole
+    frame of which ``one_hot`` holds the rank's columns (MAX over ranks)."""
     fg = one_hot[:, 1:] >= 0.5
     present_fg = fg.flatten(2).any(dim=2)
     present_bg = (~fg.any(dim=1)).flatten(1).any(dim=1)
-    return torch.cat([present_bg[:, None], present_fg], dim=1)
+    present = torch.cat([present_bg[:, None], present_fg], dim=1)
+    if space is not None:
+        present = space.all_reduce(present.to(torch.int32), "max", "objects max") > 0
+    return present
 
 
 class ResBlock(nn.Module):
@@ -120,7 +135,10 @@ class EncoderMemory(ResNet50Trunk):
         f_bk = f.to(dt)[:, None].expand(B, Ko, *f.shape[1:]).reshape(B * Ko, *f.shape[1:])
         x5 = torch.cat([f_bk, m_bk[:, None].to(dt), o_bk[:, None].to(dt)], dim=1)
         w5 = torch.cat([self.conv1.weight, self.conv1_m.weight, self.conv1_o.weight], dim=1)
-        c1 = F.conv2d(x5, w5.to(dt), stride=2, padding=3)
+        if self.space is None:
+            c1 = F.conv2d(x5, w5.to(dt), stride=2, padding=3)
+        else:
+            c1 = self.space.conv2d(x5, w5.to(dt), None, 2, 3)
         return self.trunk(None, conv1_out=c1)[0]
 
 
@@ -133,7 +151,10 @@ class EncoderQuery(ResNet50Trunk):
 
 
 class KeyValue(nn.Module):
-    """Parallel 3x3 key/value heads (reference models/rmnet.py:168-176)."""
+    """Parallel 3x3 key/value heads (reference models/rmnet.py:168-176);
+    under a width mesh both read one halo of ``x``."""
+
+    space = None
 
     def __init__(self, indim: int = 1024, keydim: int = 128, valdim: int = 512):
         super().__init__()
@@ -141,11 +162,19 @@ class KeyValue(nn.Module):
         self.value_conv = Conv2d(indim, valdim, 3, padding=1)
 
     def forward(self, x):
-        return self.key_conv(x), self.value_conv(x)
+        if self.space is None:
+            return self.key_conv(x), self.value_conv(x)
+        # both heads are 3x3, stride 1, padding 1: one halo serves them
+        x = self.space.conv_halo(x.to(self.key_conv.dtype), 3, 1, 1)
+        return tuple(F.conv2d(x, c.weight.to(c.dtype), None if c.bias is None else
+                              c.bias.to(c.dtype), 1, (1, 0))
+                     for c in (self.key_conv, self.value_conv))
 
 
 class Refine(nn.Module):
     """Decoder refinement block (reference models/rmnet.py:107-120)."""
+
+    space = None
 
     def __init__(self, inplanes: int, planes: int, scale_factor: int = 2):
         super().__init__()
@@ -160,6 +189,8 @@ class Refine(nn.Module):
         return self.ResFS(self.convFS(f))
 
     def fuse(self, s, pm):
+        if self.space is not None:
+            return self.ResMM(s + self.space.upsample(pm, self.scale_factor))
         up = F.interpolate(pm, size=(pm.shape[-2] * self.scale_factor,
                                      pm.shape[-1] * self.scale_factor),
                            mode="bilinear", align_corners=False)
@@ -171,6 +202,8 @@ class Refine(nn.Module):
 
 class Decoder(nn.Module):
     """1024 -> 2-logit decoder with skip refinement (reference models/rmnet.py:123-140)."""
+
+    space = None
 
     def __init__(self, mdim: int = 256):
         super().__init__()
@@ -190,6 +223,8 @@ class Decoder(nn.Module):
         m3 = self.RF3.fuse(s3, m4)
         m2 = self.RF2.fuse(s2, m3)
         p2 = self.pred2(F.relu(m2))
+        if self.space is not None:
+            return self.space.upsample(p2, 4)
         return F.interpolate(p2, size=(p2.shape[-2] * 4, p2.shape[-1] * 4),
                              mode="bilinear", align_corners=False)
 
@@ -199,21 +234,23 @@ class Decoder(nn.Module):
 
 
 def _dense_read(m_key, m_val, q_key, slot_valid):
-    """Dense memory read -> (mem (N, h, w, Cv), p (N, S*h*w, h*w)).
+    """Dense memory read -> (mem (N, h, w_q, Cv), p (N, S*h*w, h*w_q)) for a
+    query q_key (N, h, w_q, Ck): the bank's columns, or a rank's under a
+    width mesh.
 
     Scores and softmax in float32; invalid slots get -inf."""
     N, S, h, w, Ck = m_key.shape
     Cv = m_val.shape[-1]
     hw = h * w
     mk = m_key.reshape(N, S * hw, Ck).float()
-    qk = q_key.reshape(N, hw, Ck).float()
+    qk = q_key.reshape(N, -1, Ck).float()
     scores = torch.bmm(mk, qk.transpose(1, 2)) / math.sqrt(Ck)  # (N, M, Q)
     valid = slot_valid[:, :, None].expand(N, S, hw).reshape(N, S * hw)
     scores = scores.masked_fill(~valid[..., None], -math.inf)
     p = torch.softmax(scores, dim=1)
     mv = m_val.reshape(N, S * hw, Cv)
     mem = torch.bmm(p.transpose(1, 2).to(mv.dtype), mv)  # (N, Q, Cv)
-    return mem.reshape(N, h, w, Cv), p
+    return mem.reshape(q_key.shape[:3] + (Cv,)), p
 
 
 def memory_read(m_key, m_val, q_key, q_val, slot_valid):
@@ -307,6 +344,8 @@ class RMNetApply:
     # training under TRAIN.DATA_PARALLEL: the rank's mesh, whose global batch
     # gives trainable BatchNorm its statistics
     mesh: Optional[DataMesh] = None
+    # width-sharded inference (spatial_forward_video): the rank's width mesh
+    space: Optional[WidthMesh] = None
 
     def running_stats(self):
         """The encoders' running BatchNorm statistics by state-dict name
@@ -337,11 +376,21 @@ class RMNetApply:
             out = fn(*args)
         return out if bn is not None else (out, None)
 
-    def _att(self, mask, out_hw, offset):
+    def _att(self, mask, out_hw, offset, padded=False):
+        """The box map of ``mask`` on the /16 grid and the boxes; under a
+        width mesh, of the rank's columns of a mask in ``padded`` (or frame)
+        coordinates."""
+        shard = None if self.space is None else self.space.box_shard(padded)
         return regional_attention_small(
             mask, out_hw, offset, 16,
-            self.prob_threshold, self.n_pts_threshold, self.n_bbox_loose_pixels,
+            self.prob_threshold, self.n_pts_threshold, self.n_bbox_loose_pixels, shard,
         )
+
+    def _pad(self, x):
+        """``x`` (..., H, W) zero-padded to multiples of 16 -> (the padded
+        tensor, or under a width mesh the rank's columns of it; the pads)."""
+        (x_p,), pads = pad_divide_by([x], 16, spatial_axes=(-2, -1))
+        return (x_p, pads) if self.space is None else (self.space.padded_slice(x_p), pads)
 
     def memorize(self, frame, masks, obj_valid, bn=None):
         """Encode one frame into per-object regional keys/values.
@@ -352,8 +401,8 @@ class RMNetApply:
         running statistics, the memory encoder's updated (None: frozen).
         """
         B, K = masks.shape[:2]
-        (frame_p,), _ = pad_divide_by([frame], 16, spatial_axes=(-2, -1))
-        (masks_p,), _ = pad_divide_by([masks], 16, spatial_axes=(-2, -1))
+        frame_p, _ = self._pad(frame)
+        masks_p, _ = self._pad(masks)
         Hp, Wp = masks_p.shape[-2:]
         v = obj_valid.to(masks_p.dtype)[:, :, None, None]
         masks_v = masks_p * v
@@ -367,11 +416,16 @@ class RMNetApply:
                                others[:, 1:].reshape(B * Ko, Hp, Wp))
         k4, v4 = m.kv_memory(r4)
         h, w = k4.shape[-2:]
-        att, bboxes = self._att(masks_p, (h, w), (0, 0))
+        att, bboxes = self._att(masks_p, (h, w), (0, 0), padded=True)
         # zero slot 0 and invalid objects, mask by the /16 regional map
         keep = (att * v)[:, 1:].to(k4.dtype)[..., None]  # (B, Ko, h, w, 1)
-        k_obj = k4.permute(0, 2, 3, 1).reshape(B, Ko, h, w, -1) * keep
-        v_obj = v4.permute(0, 2, 3, 1).reshape(B, Ko, h, w, -1) * keep
+        if self.space is None:
+            k_obj = k4.permute(0, 2, 3, 1).reshape(B, Ko, h, w, -1) * keep
+            v_obj = v4.permute(0, 2, 3, 1).reshape(B, Ko, h, w, -1) * keep
+        else:  # the whole /16 width on every rank: one gather of both
+            kv = torch.cat([k4, v4], dim=1).reshape(B, Ko, -1, h, w) * keep[..., 0][:, :, None]
+            kv = self.space.gather_grid(kv, "gather bank").permute(0, 1, 3, 4, 2)
+            k_obj, v_obj = kv[..., :k4.shape[1]], kv[..., k4.shape[1]:]
         pad = (0, 0, 0, 0, 0, 0, 1, 0)
         return F.pad(k_obj, pad), F.pad(v_obj, pad), bboxes, bn
 
@@ -384,16 +438,20 @@ class RMNetApply:
         constant-ones gradient: that constant only cancels through the
         estimate's softmax when every channel gets it (rmnet_tpu/models/
         rmnet.py:504-509). Otherwise the background channel is not warped:
-        slot 0 never reaches the box op, so the map is the same."""
+        slot 0 never reaches the box op, so the map is the same.
+
+        Under a width mesh ``prev_mask`` is the whole frame's, ``flow`` and
+        the map the rank's columns."""
         if flow is None:
-            expt = prev_mask
+            expt = prev_mask if self.space is None else self.space.unpadded_slice(prev_mask)
         elif torch.is_grad_enabled():
             return warped_regional_attention_small(
                 prev_mask, flow.permute(0, 2, 3, 1), out_hw, offset, 16,
                 self.prob_threshold, self.n_pts_threshold, self.n_bbox_loose_pixels)
         else:
+            x0 = 0 if self.space is None else self.space.unpadded_columns()[0]
             warped, _ = backward_warp(prev_mask[:, 1:].permute(0, 2, 3, 1),
-                                      flow.permute(0, 2, 3, 1))
+                                      flow.permute(0, 2, 3, 1), x0)
             expt = F.pad(warped.permute(0, 3, 1, 2), (0, 0, 0, 0, 1, 0))
         return self._att(expt, out_hw, offset)[0]
 
@@ -408,7 +466,7 @@ class RMNetApply:
         the query encoder's updated (None: frozen).
         """
         B, K, S = mem_keys.shape[:3]
-        (frame_p,), pads = pad_divide_by([frame], 16, spatial_axes=(-2, -1))
+        frame_p, pads = self._pad(frame)
         Hp, Wp = frame_p.shape[-2:]
         m = self.model
         (r4, r3, r2), bn = self._encoder("encoder_query", "forward", bn, frame_p)
@@ -421,9 +479,10 @@ class RMNetApply:
         q_key = (k4[:, None] * att).permute(0, 1, 3, 4, 2).reshape(N, h, w, -1)
         q_val = (v4[:, None] * att).reshape(N, -1, h, w)
         valid = slot_valid[:, None].expand(B, Ko, S).reshape(N, S)
-        # views of the bank (a copy only when B > 1)
-        mk = mem_keys[:, 1:].reshape(N, S, h, w, -1)
-        mv = mem_values[:, 1:].reshape(N, S, h, w, -1)
+        # views of the bank (a copy only when B > 1); under a width mesh the
+        # bank holds the whole /16 width and the query the rank's columns
+        mk = mem_keys[:, 1:].reshape(N, S, *mem_keys.shape[3:5], -1)
+        mv = mem_values[:, 1:].reshape(N, S, *mem_values.shape[3:5], -1)
         if self.use_flash_attention:
             boxes = mem_bboxes[:, 1:].reshape(N, S, 4)
             mem, _ = flash_memory_read(mk, mv, q_key.contiguous(), valid, boxes)
@@ -439,6 +498,8 @@ class RMNetApply:
         ps = torch.softmax(logits2, dim=1)[:, 1].reshape(B, Ko, Hp, Wp)
         ps = F.pad(ps, (0, 0, 0, 0, 1, 0))
         logit = soft_aggregation(ps, obj_valid)
+        if self.space is not None:
+            pads = self.space.own_pads(pads)
         return unpad(logit, pads, spatial_axes=(-2, -1)), bn
 
     def step(self, state: VOSState, frame, flow, gt_mask, any_new, commit,
@@ -516,16 +577,20 @@ class RMNetApply:
     def _segment_frame(self, prev_mask, exist, frame, flow, gt_mask, any_new,
                        obj_valid, keys, values, bboxes, slot_valid, bn=None):
         """Segment ``frame`` against the bank, inject new objects, suppress
-        unrevealed ones -> (est_mask (B, K, H, W), exist, bn)."""
+        unrevealed ones -> (est_mask (B, K, H, W), exist, bn). Under a width
+        mesh ``flow``, ``gt_mask`` and the estimate hold the rank's columns."""
         H, W = frame.shape[-2:]
         lw, uw, lh, uh = divide_pads(H, W, 16)
         out_hw = ((H + lh + uh) // 16, (W + lw + uw) // 16)
+        if self.space is not None:
+            lo, hi = self.space.grid[self.space.rank]
+            out_hw = (out_hw[0], hi - lo)
         att_small = self.get_att_small(prev_mask, flow, out_hw, (lh, lw))
         logit, bn = self.segment(frame, att_small, keys, values, slot_valid, obj_valid,
                                  mem_bboxes=bboxes, bn=bn)
 
         # new-object injection (models/rmnet.py:436-442), per stream
-        newly = _present_objects(gt_mask) & ~exist & any_new[:, None]
+        newly = _present_objects(gt_mask, self.space) & ~exist & any_new[:, None]
         inj = gt_mask.to(logit.dtype) * NEW_OBJECT_SCALE + NEW_OBJECT_BIAS
         logit = torch.where(newly[:, :, None, None], inj, logit)
         exist = exist | newly
@@ -545,7 +610,8 @@ class RMNetApply:
         Each frame's bank is built out of place (committed slots ++ prev),
         because the memory read saves it for the backward pass. With
         ``train_bn`` -> (est, the running statistics after the clip),
-        starting from ``bn`` (default: the module's own).
+        starting from ``bn`` (default: the module's own). Under a width mesh
+        each frame runs on the rank's columns and its estimate is gathered.
         """
         B, T, K, H, W = masks.shape
         n_objects = np.asarray(n_objects.cpu() if torch.is_tensor(n_objects) else n_objects)
@@ -562,7 +628,9 @@ class RMNetApply:
         frames_c = frames.permute(0, 1, 4, 2, 3)   # (B, T, 3, H, W)
         flows_c = flows.permute(0, 1, 4, 2, 3)     # (B, T, 2, H, W)
         prev_mask, prev_frame = masks[:, 0], frames_c[:, 0]
-        exist = _present_objects(masks[:, 0])
+        # what a frame reads per pixel: the rank's columns under a width mesh
+        own = (lambda x: x) if self.space is None else self.space.unpadded_slice
+        exist = _present_objects(own(masks[:, 0]), self.space)
         slots = [None] * capacity                  # committed (k, v, box) per slot
         cursor = 0
         est = [masks[:, 0]]
@@ -588,8 +656,10 @@ class RMNetApply:
             slot_valid = _slot_valid(capacity, flag(cursor, torch.int32),
                                      flag(bool(commit[t - 1])))
             est_t, exist, bn = self._segment_frame(
-                prev_mask, exist, frames_c[:, t], flows_c[:, t], masks[:, t],
+                prev_mask, exist, frames_c[:, t], own(flows_c[:, t]), own(masks[:, t]),
                 flag(bool(any_new[t])), obj_valid, keys, values, bboxes, slot_valid, bn)
+            if self.space is not None:
+                est_t = self.space.gather_unpadded(est_t, "gather estimate")
             return (est_t, exist, bn, *prev)
 
         if self.train_bn and bn is None:

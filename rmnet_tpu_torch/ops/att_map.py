@@ -10,6 +10,12 @@ Semantics of the reference CUDA op:
   * boxes are (x_min, x_max, y_min, y_max) int32, shape (B, K, 4).
 The map is rasterized straight onto the nearest-sample /stride grid.
 
+Under a width mesh (parallel/space.py) a rank holds some columns of the mask
+(a :class:`ColumnShard`): its columns vote with their global x, the point
+counts are summed over the ranks and the extremes reduced in one MIN, the
+maxima negated (a rank with no hit keeps the sentinels 32767 and -1), the boxes are clamped
+to the global width, and the rank rasterizes its own grid columns.
+
 Gradients, as the reference wrapper and the JAX package give them: the map's
 gradient with respect to the mask is constant ones, whatever the cotangent
 (reference extensions/reg_att_map_generator/__init__.py:21-24,
@@ -20,7 +26,7 @@ gradient to the flow (rmnet_tpu/ops/att_map.py:210-314).
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Any, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -29,13 +35,27 @@ from rmnet_tpu_torch.ops.warp import _axis_coverage, backward_warp
 _BIG = 32767  # reference kernel's init value for the mins
 
 
+class ColumnShard(NamedTuple):
+    """A rank's columns of a mask sharded along its width: ``x0`` the global
+    x of its first column, ``width`` the mask's global width, ``grid0`` the
+    global index of its first column of the /stride grid, ``mesh`` the width
+    mesh, whose ``all_reduce(t, op, kind)`` reduces over the ranks."""
+
+    x0: int
+    width: int
+    grid0: int
+    mesh: Any
+
+
 def _bboxes(
     mask: torch.Tensor,
     prob_threshold: float,
     n_pts_threshold: int,
     n_bbox_loose_pixels: int,
+    shard: Optional[ColumnShard] = None,
 ) -> torch.Tensor:
-    """(B, K, 4) int32 dilated boxes (x_min, x_max, y_min, y_max)."""
+    """(B, K, 4) int32 dilated boxes (x_min, x_max, y_min, y_max); with
+    ``shard``, of the whole mask of which ``mask`` holds the rank's columns."""
     B, K, H, W = mask.shape
     dev = mask.device
     hit = mask >= prob_threshold                      # (B, K, H, W)
@@ -46,10 +66,18 @@ def _bboxes(
     ys = torch.arange(H, device=dev, dtype=torch.int32)
     big = torch.full((), _BIG, dtype=torch.int32, device=dev)
     neg = torch.full((), -1, dtype=torch.int32, device=dev)
+    if shard is not None:
+        xs = xs + shard.x0
+        W = shard.width
     x_min = torch.where(hit_x, xs, big).amin(dim=2)
     x_max = torch.where(hit_x, xs, neg).amax(dim=2)
     y_min = torch.where(hit_y, ys, big).amin(dim=2)
     y_max = torch.where(hit_y, ys, neg).amax(dim=2)
+    if shard is not None:
+        n_pts = shard.mesh.all_reduce(n_pts, "sum", "box points")
+        ext = shard.mesh.all_reduce(torch.stack([x_min, y_min, -x_max, -y_max]), "min",
+                                    "box extremes")
+        x_min, y_min, x_max, y_max = ext[0], ext[1], -ext[2], -ext[3]
 
     loose = n_bbox_loose_pixels
     whole = n_pts < n_pts_threshold
@@ -69,15 +97,17 @@ def _raster_small(
     offset: Tuple[int, int],   # (top, left) padding before sampling
     stride: int,
     dtype: torch.dtype,
+    grid0: int = 0,
 ) -> torch.Tensor:
     """Rasterize boxes on the /stride nearest-sample grid: cell (i, j) is
     inside iff stride*i - top is in [y_min, y_max] and stride*j - left in
-    [x_min, x_max]; slot 0 is always outside."""
+    [x_min, x_max]; slot 0 is always outside. The grid's columns are j =
+    ``grid0`` .. ``grid0`` + w - 1."""
     B, K = bboxes.shape[:2]
     h, w = out_hw
     top, left = offset
     dev = bboxes.device
-    xs = torch.arange(w, device=dev, dtype=torch.int32) * stride - left
+    xs = (torch.arange(w, device=dev, dtype=torch.int32) + grid0) * stride - left
     ys = torch.arange(h, device=dev, dtype=torch.int32) * stride - top
     b = bboxes[..., None]
     inside_x = (xs >= b[:, :, 0]) & (xs <= b[:, :, 1])   # (B, K, w)
@@ -92,16 +122,17 @@ class _RegionalAttentionSmall(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, mask, out_hw, offset, stride, prob_threshold, n_pts_threshold,
-                n_bbox_loose_pixels):
-        bboxes = _bboxes(mask, prob_threshold, n_pts_threshold, n_bbox_loose_pixels)
+                n_bbox_loose_pixels, shard):
+        bboxes = _bboxes(mask, prob_threshold, n_pts_threshold, n_bbox_loose_pixels, shard)
         ctx.mark_non_differentiable(bboxes)
         ctx.mask_meta = (mask.shape, mask.dtype, mask.device)
-        return _raster_small(bboxes, out_hw, offset, stride, mask.dtype), bboxes
+        grid0 = 0 if shard is None else shard.grid0
+        return _raster_small(bboxes, out_hw, offset, stride, mask.dtype, grid0), bboxes
 
     @staticmethod
     def backward(ctx, g_att, g_boxes):
         shape, dtype, device = ctx.mask_meta
-        return (torch.ones(shape, dtype=dtype, device=device),) + (None,) * 6
+        return (torch.ones(shape, dtype=dtype, device=device),) + (None,) * 7
 
 
 def regional_attention_small(
@@ -112,12 +143,14 @@ def regional_attention_small(
     prob_threshold: float = 0.5,
     n_pts_threshold: int = 10,
     n_bbox_loose_pixels: int = 64,
+    shard: Optional[ColumnShard] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """mask (B, K, H, W) -> (att (B, K, h, w) in mask's dtype, boxes
     (B, K, 4) int32 in mask coordinates). The gradient with respect to
-    ``mask`` is ones, whatever reaches ``att``."""
+    ``mask`` is ones, whatever reaches ``att``. With ``shard``, ``mask`` and
+    ``att`` are the rank's columns and the boxes the whole mask's."""
     return _RegionalAttentionSmall.apply(mask, out_hw, offset, stride, prob_threshold,
-                                         n_pts_threshold, n_bbox_loose_pixels)
+                                         n_pts_threshold, n_bbox_loose_pixels, shard)
 
 
 def _warp_splat_ones(flow: torch.Tensor) -> torch.Tensor:

@@ -42,6 +42,13 @@ build/kernels/ and bound with ctypes:
 ``flash_memory_read`` is differentiable (:class:`FlashMemoryRead`). It
 computes the tile metadata, then takes the plain versions only for tensors
 on the CPU; for CUDA tensors it launches the kernels or raises.
+
+The query may hold fewer columns than the bank: under a width mesh
+(parallel/space.py) a rank reads its query shard, (N, h, w_q, Ck), Q =
+h*w_q rows, against the whole bank of M = S*h*w positions. The forward
+kernel takes Q and h*w apart (``flash_read_fwd``'s Q and hw); the backward
+takes Q = h*w only and raises otherwise (training under a width mesh is the
+hybrid data x space slice, not ported yet).
 """
 
 from __future__ import annotations
@@ -154,8 +161,8 @@ def flash_memory_read_reference(
     z: torch.Tensor,           # (N,) int32
     mt: int = KERNEL_TILE,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain PyTorch version of the forward kernel -> (out (N, h, w, Cv),
-    lse (N, Q)).
+    """Plain PyTorch version of the forward kernel -> (out (N, h, w_q, Cv),
+    lse (N, Q)) for a query ``q_key`` (N, h, w_q, Ck) of Q = h*w_q rows.
 
     Reads exactly the positions of the listed active tiles (invalid slots
     masked), adds the closed-form mass of the ``z`` skipped valid positions
@@ -167,7 +174,7 @@ def flash_memory_read_reference(
     M = S * hw
     use = _listed_positions(order, counts, slot_valid, hw, mt)  # (N, M)
 
-    qf = q_key.reshape(N, hw, Ck).float()
+    qf = q_key.reshape(N, -1, Ck).float()
     kf = m_key.reshape(N, M, Ck).float()
     vf = m_val.reshape(N, M, Cv).float()
     s = torch.einsum("nqc,nmc->nqm", qf, kf) / math.sqrt(Ck)
@@ -182,7 +189,7 @@ def flash_memory_read_reference(
     out = torch.einsum("nqm,nmc->nqc", p, vf) / l[..., None]
     lse = torch.where(l_raw > 0, m2 + torch.log(l),
                       torch.full_like(l, math.inf))
-    return out.reshape(N, h, w, Cv).to(q_key.dtype), lse
+    return out.reshape(q_key.shape[:3] + (Cv,)).to(q_key.dtype), lse
 
 
 def fwd_splits(N: int, Q: int, nt: int, sm_count: int) -> int:
@@ -225,7 +232,7 @@ def flash_read_fwd_partials_reference(
     Cv = m_val.shape[-1]
     hw = h * w
     M = S * hw
-    qf = q_key.reshape(N, hw, Ck).float()
+    qf = q_key.reshape(N, -1, Ck).float()
     kf = m_key.reshape(N, M, Ck).float()
     vf = m_val.reshape(N, M, Cv).float()
     s = torch.einsum("nqc,nmc->nqm", qf, kf) / math.sqrt(Ck)
@@ -439,10 +446,11 @@ def _check_cuda_inputs(m_key, m_val, q_key, slot_valid, order, counts):
         raise TypeError("slot_valid must be bool")
     N, S, h, w, Ck = m_key.shape
     Cv = m_val.shape[-1]
+    w_q = q_key.shape[2]
     if Ck != _CK or Cv % _CV_SLICE != 0:
         raise ValueError(f"kernel takes Ck == {_CK} and Cv % {_CV_SLICE} == 0, "
                          f"got Ck={Ck}, Cv={Cv}")
-    if m_val.shape[:4] != (N, S, h, w) or q_key.shape != (N, h, w, Ck):
+    if m_val.shape[:4] != (N, S, h, w) or q_key.shape != (N, h, w_q, Ck):
         raise ValueError(f"shape mismatch: m_key {tuple(m_key.shape)}, m_val "
                          f"{tuple(m_val.shape)}, q_key {tuple(q_key.shape)}")
     if slot_valid.shape != (N, S):
@@ -459,7 +467,7 @@ def _check_cuda_inputs(m_key, m_val, q_key, slot_valid, order, counts):
                              f"(h, w) position axis, got strides {st}")
         if any(s % 8 for s in st[:4]) or t.data_ptr() % 16:
             raise ValueError(f"{name} strides {st} / pointer not 16-byte aligned")
-    _check_meta("q_key", q_key, q_key.dtype, (N, h, w, Ck), align=True)
+    _check_meta("q_key", q_key, q_key.dtype, (N, h, w_q, Ck), align=True)
 
 
 def _check_meta(name, t, dtype, shape, align=False):
@@ -494,6 +502,7 @@ class FlashMemoryRead(torch.autograd.Function):
     def backward(ctx, d_out, _d_lse):
         m_key, m_val, q_key, slot_valid, out, lse, tile_active, order, counts = (
             ctx.saved_tensors)
+        _check_full_query(m_key, q_key)
         N = q_key.shape[0]
         d_out = d_out.to(q_key.dtype).contiguous()
         # D = rowsum(dO * O), outside the kernel as in flash_attention.py:309-311
@@ -511,32 +520,44 @@ class FlashMemoryRead(torch.autograd.Function):
 def flash_memory_read(
     m_key: torch.Tensor,       # (N, S, h, w, Ck), any strides with C contiguous
     m_val: torch.Tensor,       # (N, S, h, w, Cv)
-    q_key: torch.Tensor,       # (N, h, w, Ck)
+    q_key: torch.Tensor,       # (N, h, w_q, Ck), w_q = w but under a width mesh
     slot_valid: torch.Tensor,  # (N, S) bool
     bboxes: Optional[torch.Tensor] = None,  # (N, S, 4) int32 full-res boxes
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Block-sparse memory read -> (out (N, h, w, Cv), lse (N, h*w) f32).
+    """Block-sparse memory read -> (out (N, h, w_q, Cv), lse (N, h*w_q) f32).
 
     ``bboxes`` are the per-slot regional boxes in padded full-resolution
     coordinates (x_min, x_max, y_min, y_max), as the bank stores them; memory
     positions outside a slot's box must hold zero keys and values. On the
     CPU this runs the plain versions; on CUDA it launches the kernels.
-    Differentiable in ``m_key``, ``m_val`` and ``q_key`` (``lse`` is not).
+    Differentiable in ``m_key``, ``m_val`` and ``q_key`` (``lse`` is not)
+    where the query holds the bank's columns (w_q = w).
     """
     return FlashMemoryRead.apply(m_key, m_val, q_key, slot_valid, bboxes)
 
 
-def fwd_splits_for(m_key, device) -> int:
-    """:func:`fwd_splits` for a read of bank ``m_key`` on CUDA ``device``."""
+def _check_full_query(m_key, q_key) -> None:
+    if q_key.shape[2] != m_key.shape[3]:
+        raise NotImplementedError(
+            f"the read's backward takes a query of the bank's {m_key.shape[3]} columns, got "
+            f"{q_key.shape[2]}: training under a width mesh is the hybrid data x space "
+            f"slice, not ported yet")
+
+
+def fwd_splits_for(m_key, device, w_q: Optional[int] = None) -> int:
+    """:func:`fwd_splits` for a read of bank ``m_key`` on CUDA ``device`` by
+    a query of ``w_q`` columns (default: the bank's), Q = h*w_q rows."""
     N, S, h, w, _ = m_key.shape
     sm_count = torch.cuda.get_device_properties(device).multi_processor_count
-    return fwd_splits(N, h * w, -(-S * h * w // KERNEL_TILE), sm_count)
+    return fwd_splits(N, h * (w if w_q is None else w_q), -(-S * h * w // KERNEL_TILE),
+                      sm_count)
 
 
 def flash_read_fwd(m_key, m_val, q_key, slot_valid, order, counts, z):
     """Launch the forward's kernels (main, then merge) on tile metadata from
-    :func:`tile_metadata` (at ``KERNEL_TILE``) -> (out (N, h, w, Cv), lse
-    (N, h*w) f32). Takes CUDA tensors only and Cv = 512; adds one to
+    :func:`tile_metadata` (at ``KERNEL_TILE``) -> (out (N, h, w_q, Cv), lse
+    (N, Q) f32) for a query of Q = h*w_q rows against the bank's M = S*h*w
+    positions. Takes CUDA tensors only and Cv = 512; adds one to
     ``flash_memory_read.launches`` per call, or to
     ``flash_memory_read.captured`` when the call is recorded into a CUDA
     graph (whoever replays the graph counts its launches in
@@ -550,11 +571,11 @@ def flash_read_fwd(m_key, m_val, q_key, slot_valid, order, counts, z):
     if Cv != _FWD_CV:
         raise ValueError(f"the forward kernel takes Cv == {_FWD_CV}, got {Cv}")
     lib = LIBRARY.load()
-    Q = h * w
+    Q = h * q_key.shape[2]
     dev = q_key.device
-    splits = fwd_splits_for(m_key, dev)
+    splits = fwd_splits_for(m_key, dev, q_key.shape[2])
     Qp = -(-Q // _QUERY_BLOCK) * _QUERY_BLOCK
-    out = torch.empty((N, h, w, Cv), dtype=q_key.dtype, device=dev)
+    out = torch.empty((N, h, q_key.shape[2], Cv), dtype=q_key.dtype, device=dev)
     lse = torch.empty((N, Q), dtype=torch.float32, device=dev)
     part_acc = torch.empty((N, splits, Qp, Cv), dtype=torch.float32, device=dev)
     part_ml = torch.empty((N, splits, Qp, 2), dtype=torch.float32, device=dev)
@@ -565,7 +586,7 @@ def flash_read_fwd(m_key, m_val, q_key, slot_valid, order, counts, z):
         m_val.data_ptr(), valid_u8.data_ptr(), order.data_ptr(),
         counts.data_ptr(), z.data_ptr(), out.data_ptr(), lse.data_ptr(),
         part_acc.data_ptr(), part_ml.data_ptr(),
-        N, Q, S, Q, Cv, order.shape[1], splits,
+        N, Q, S, h * w, Cv, order.shape[1], splits,
         ks[0], ks[1], ks[3], vs[0], vs[1], vs[3],
         1.0 / math.sqrt(Ck), torch.cuda.current_stream(dev).cuda_stream,
     )
@@ -584,8 +605,10 @@ def flash_read_bwd(m_key, m_val, q_key, slot_valid, order, counts, d_out, lse, d
     (N, nt*64, Cv)) in the inputs' dtype, zero outside the listed tiles, like
     :func:`flash_read_bwd_reference`. Takes CUDA tensors only; adds one to
     ``flash_read_bwd.launches`` per call. Allocates two float32 scratch
-    tensors of (N, nt, Q rounded up to 64, 64) for P and dS."""
+    tensors of (N, nt, Q rounded up to 64, 64) for P and dS. Raises for a
+    query narrower than the bank."""
     _check_cuda_inputs(m_key, m_val, q_key, slot_valid, order, counts)
+    _check_full_query(m_key, q_key)
     N, S, h, w, Ck = m_key.shape
     Cv = m_val.shape[-1]
     Q = h * w

@@ -10,7 +10,10 @@ shifts a coordinate by about 1e-6, enough to flip the 0.9999 cut at the
 frame edge. The all-ones warp has a closed form per axis.
 
 Layout as in the JAX package: img (B, H, W, C) or (B, H, W), flow
-(B, H, W, 2) with flow[..., 0] = dx and flow[..., 1] = dy.
+(B, H, W, 2) with flow[..., 0] = dx and flow[..., 1] = dy. Under a width
+mesh (parallel/space.py) a rank warps only its own output columns: the flow
+holds those columns, from global x = ``x0``, and the image is the whole
+frame, since a flow vector can point into any shard.
 """
 
 from __future__ import annotations
@@ -30,9 +33,11 @@ def _axis_coverage(c: torch.Tensor, n: int) -> torch.Tensor:
 
 
 def grid_sample_bilinear(img: torch.Tensor, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-    """Bilinear sample img (B, H, W, C) at float32 pixel coords x, y (B, H, W)
-    with zeros padding; taps weighted in float32, result in img's dtype."""
+    """Bilinear sample img (B, H, W, C) at float32 pixel coords x, y (B, Ho,
+    Wo) with zeros padding -> (B, Ho, Wo, C); taps weighted in float32,
+    result in img's dtype."""
     B, H, W, C = img.shape
+    n = x.shape[1] * x.shape[2]
     x0 = torch.floor(x)
     y0 = torch.floor(y)
     wx1 = x - x0
@@ -44,8 +49,8 @@ def grid_sample_bilinear(img: torch.Tensor, x: torch.Tensor, y: torch.Tensor) ->
     def tap(yi, xi):
         valid = (xi >= 0) & (xi <= W - 1) & (yi >= 0) & (yi <= H - 1)
         idx = (yi.clamp(0, H - 1) * W + xi.clamp(0, W - 1)).long()
-        vals = torch.gather(flat, 1, idx.reshape(B, H * W, 1).expand(B, H * W, C))
-        return vals.reshape(B, H, W, C).float() * valid[..., None]
+        vals = torch.gather(flat, 1, idx.reshape(B, n, 1).expand(B, n, C))
+        return vals.reshape(x.shape + (C,)).float() * valid[..., None]
 
     out = (tap(y0, x0) * (wy0 * wx0)[..., None]
            + tap(y0, x0 + 1) * (wy0 * wx1)[..., None]
@@ -54,9 +59,11 @@ def grid_sample_bilinear(img: torch.Tensor, x: torch.Tensor, y: torch.Tensor) ->
     return out.to(img.dtype)
 
 
-def backward_warp(img: torch.Tensor, flow: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+def backward_warp(img: torch.Tensor, flow: torch.Tensor,
+                  x0: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
     """Warp ``img`` backwards by ``flow`` -> (warped, binary validity mask),
-    both shaped like ``img``."""
+    both shaped like ``img``, or, with a flow narrower than ``img``, like
+    its columns ``x0`` .. ``x0`` + the flow's width - 1."""
     squeeze = img.ndim == 3
     if squeeze:
         img = img[..., None]
@@ -64,7 +71,8 @@ def backward_warp(img: torch.Tensor, flow: torch.Tensor) -> Tuple[torch.Tensor, 
     # coordinate math in float32: a bf16 pixel grid quantizes to multiples
     # of 4 beyond x = 512
     flow32 = flow.float()
-    xs = torch.arange(W, dtype=torch.float32, device=img.device)[None, None, :]
+    xs = torch.arange(x0, x0 + flow.shape[2], dtype=torch.float32,
+                      device=img.device)[None, None, :]
     ys = torch.arange(H, dtype=torch.float32, device=img.device)[None, :, None]
     x = xs + flow32[..., 0]
     y = ys + flow32[..., 1]

@@ -18,11 +18,16 @@ crosses ranks is an explicit collective:
     global loss and Adam keeps the replicas bit-identical;
   * the parameters at the start (``broadcast_tensors`` from rank 0).
 
-Every collective is an all-reduce or a broadcast, the two operations that the
-gloo backend takes for CUDA tensors. A gloo group does not hand it CUDA
-tensors even so: by design, ``DataMesh`` stages a CUDA tensor of a gloo group
-through pinned host memory (gloo's transport is the host's in any case), and
+Every collective of data parallelism is an all-reduce or a broadcast. A gloo
+group is never handed CUDA tensors: by design, ``DataMesh`` stages a CUDA
+tensor of a gloo group through pinned host memory (gloo's transport is the
+host's in any case), in buffers it keeps by shape and type and reuses, and
 hands host tensors to gloo as they are. An NCCL group works on the device.
+
+The same 1-D mesh serves the width mesh of ``spatial_forward_video``
+(parallel/space.py, re-exported here), which adds an all-gather along the
+width (``all_gather``) and all-reduces with MIN and MAX (``all_reduce_``'s
+``op``).
 
 ``rank_rows`` is the rank's share of a global batch in the layout of
 TRAIN.GRAD_ACCUM_STEPS: micro-batch j is global rows [j B/A, (j+1) B/A), as
@@ -58,41 +63,73 @@ DEFAULT_TIMEOUT_S = 1800.0  # a rank waits this long in a collective, validation
 _LOG_FORMAT = "[%(levelname)s] %(asctime)s %(message)s"
 
 
+_REDUCE_OPS = {"sum": dist.ReduceOp.SUM, "min": dist.ReduceOp.MIN, "max": dist.ReduceOp.MAX}
+
+
 @dataclasses.dataclass(eq=False)
 class DataMesh:
-    """One rank of a 1-D mesh along the axis "data": its rank, the number of
-    ranks, its device and the process group's backend. ``counts`` holds the
-    collectives it ran by kind: [calls, bytes]."""
+    """One rank of a 1-D mesh, along the batch or the width: its rank, the
+    number of ranks, its device and the process group's backend. ``counts`` holds the collectives it ran by kind: [calls, bytes
+    of their results, seconds]; the seconds run from the moment the
+    collective's input is on the host (a gloo group's CUDA tensor staged) to
+    the moment its result is back. ``staging`` holds the pinned host buffers
+    of a gloo group's CUDA tensors, by (shape, dtype, role)."""
 
     rank: int
     size: int
     device: torch.device
     backend: str
-    counts: Dict[str, List[int]] = dataclasses.field(default_factory=dict)
+    counts: Dict[str, list] = dataclasses.field(default_factory=dict)
+    staging: Dict[tuple, torch.Tensor] = dataclasses.field(default_factory=dict)
 
     @property
     def comm_device(self) -> torch.device:
         """Where a tensor goes to a collective without staging."""
         return self.device if self.backend == "nccl" else torch.device("cpu")
 
-    def _run(self, op: Callable[[torch.Tensor], Any], t: torch.Tensor, kind: str) -> None:
-        """``op`` on ``t`` in place: a CUDA tensor of a gloo group goes
-        through a pinned host copy and back."""
-        calls = self.counts.setdefault(kind, [0, 0])
-        calls[0] += 1
-        calls[1] += t.numel() * t.element_size()
-        if self.backend == "gloo" and t.is_cuda:
-            host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-            host.copy_(t)
-            op(host)
-            t.copy_(host)
-        else:
-            op(t)
+    def _pinned(self, like: torch.Tensor, role: str) -> torch.Tensor:
+        key = (tuple(like.shape), like.dtype, role)
+        buf = self.staging.get(key)
+        if buf is None:
+            buf = self.staging[key] = torch.empty(like.shape, dtype=like.dtype,
+                                                  pin_memory=True)
+        return buf
 
-    def all_reduce_(self, t: torch.Tensor, kind: str) -> torch.Tensor:
-        """Sum ``t`` (contiguous) over the ranks, in place."""
-        self._run(lambda x: dist.all_reduce(x, op=dist.ReduceOp.SUM), t, kind)
+    def _run(self, op: Callable, t: torch.Tensor, kind: str,
+             out: Optional[torch.Tensor] = None) -> None:
+        """``op(t)`` in place, or ``op(t, out)`` into ``out``: CUDA tensors of
+        a gloo group go through pinned host buffers and back."""
+        result = t if out is None else out
+        staged = self.backend == "gloo" and t.is_cuda
+        src = self._pinned(t, "in").copy_(t) if staged else t
+        t0 = time.perf_counter()
+        if out is None:
+            op(src)
+            dst = src
+        else:
+            dst = self._pinned(out, "out") if staged else out
+            op(src, dst)
+        if staged:
+            result.copy_(dst)
+        calls = self.counts.setdefault(kind, [0, 0, 0.0])
+        calls[0] += 1
+        calls[1] += result.numel() * result.element_size()
+        calls[2] += time.perf_counter() - t0
+
+    def all_reduce_(self, t: torch.Tensor, kind: str, op: str = "sum") -> torch.Tensor:
+        """Reduce ``t`` (contiguous) over the ranks with ``op`` ("sum",
+        "min" or "max"), in place."""
+        reduce_op = _REDUCE_OPS[op]
+        self._run(lambda x: dist.all_reduce(x, op=reduce_op), t, kind)
         return t
+
+    def all_gather(self, t: torch.Tensor, kind: str) -> torch.Tensor:
+        """Every rank's ``t`` (equal shapes) -> (size, *t.shape) in rank
+        order, on ``t``'s device."""
+        t = t.contiguous()
+        out = t.new_empty((self.size,) + tuple(t.shape))
+        self._run(lambda x, y: dist.all_gather(list(y.unbind(0)), x), t, kind, out)
+        return out
 
     def broadcast_(self, t: torch.Tensor, kind: str, src: int = 0) -> torch.Tensor:
         """``t`` (contiguous) of rank ``src`` on every rank, in place."""
@@ -345,3 +382,10 @@ def _collect(procs, results, deadline_s) -> List[Any]:
             raise RuntimeError(f"rank {rank} failed:\n{value}")
         done[rank] = value
     return [done[r] for r in range(len(procs))]
+
+
+# the width mesh's counterpart of rmnet_tpu/parallel/mesh.py:100-149, here
+# where its JAX counterpart lives (parallel/space.py imports nothing of this
+# module)
+from rmnet_tpu_torch.parallel.space import (WidthMesh, column_split,  # noqa: E402
+                                            spatial_forward_video)

@@ -18,9 +18,10 @@ merge kernels, against the plain read and the plain split and merge): f32 at
 and +inf on the same rows. Backward (``BWD_CASES``, ``compare_bwd``): dQ, dK
 and dV each within 1e-4 (f32) or 1e-2 (bf16) of the plain gradient's largest
 magnitude. Both count one launch per call. Two forward calls
-(``check_fwd_deterministic``, bf16 at the engine's shape and f32 at the
-training read) and two backward calls on the f32 training read
-(``check_bwd_deterministic``) give bit-identical results.
+(``check_fwd_deterministic``, bf16 at the engine's shape, the training read
+in both types and a width mesh's query shard in both types) and two
+backward calls on the f32 training read (``check_bwd_deterministic``) give
+bit-identical results.
 """
 
 import pytest
