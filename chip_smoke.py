@@ -24,14 +24,16 @@ Phases, in order (each raises on failure; nothing is caught):
           S=33, f32), the graphs phase's (S=3), the training read in f32
           and bf16 and phase dp's reads (6 rows in f32 and bf16, 3 rows in
           f32), phase spatial's query shard (30x27 rows against a 30x54
-          bank of S=12, f32 and bf16) (f32 at 2e-4; bf16 within 1e-2 of the
-          plain output's largest magnitude; lse at 2e-4); two calls at
-          S33_bf16, at both training reads and at both query shards give
-          bit-identical out and lse;
+          bank of S=12, f32 and bf16), phase hybrid's (30x15 rows of 6
+          objects' rows against a 30x30 bank of S=3, f32 and bf16) (f32 at
+          2e-4; bf16 within 1e-2 of the plain output's largest magnitude;
+          lse at 2e-4); two calls at S33_bf16, at both training reads and at
+          each query shard in both types give bit-identical out and lse;
   kernel_bwd  hold the backward kernel against its plain version on the same
-          cases plus the training read (dQ, dK, dV each within 1e-4 of the
-          plain gradient's largest magnitude in f32, 1e-2 in bf16); two calls
-          on the f32 training read give bit-identical gradients;
+          cases but the inference-only ones, the query shards among them (dQ,
+          dK, dV each within 1e-4 of the plain gradient's largest magnitude
+          in f32, 1e-2 in bf16); two calls on the f32 training read and on
+          each query shard in both types give bit-identical gradients;
   engine  480x854, 2 objects, memorize_every=5, T=48, bf16, flash read, auto
           capacity, random weights, the chunk step captured as a CUDA graph
           and replayed per chunk: labels, the forward launches replayed
@@ -159,6 +161,23 @@ Phases, in order (each raises on failure; nothing is caught):
           memory per rank, the collectives per frame by kind (calls, bytes,
           ms); the read at its query shard timed (kernel, plain, SDPA over
           the dense bank, bound);
+  hybrid  hybrid batch x width training (make_hybrid_mesh, build/chip_smoke/
+          hybrid): the Trainer's single-process step first, in this process,
+          then a 2 x 2 grid of gloo ranks on cuda:0 (2 rows and 15 of the 30
+          /16 columns a rank) at the reference TRAIN (B=4, T=3, 3 objects,
+          465x465, full-width RMNet, flash read, REMAT "encoders", f32 with
+          TF32 off and cuDNN deterministic, Adam at 1e-5, the weights of seed
+          0): the grid's step against the single step (the loss within 5e-5
+          relative, each gradient tensor within 5e-4 of its norm or 1e-6 of
+          the largest gradient: tests/test_parallel.py's bar), T-1 = 2
+          forward and 2 backward read launches per rank at the query shard,
+          3 timed steps after it with finite losses and the 4 replicas
+          bit-identical after them; ms per step against the single step's,
+          collectives per step by kind (calls, MB, ms), peak memory per rank
+          against the single step's; one step with USE_BATCH_NORM (loss
+          within 1e-4, statistics within 1e-3: phase dp's bars); the forward
+          and the backward timed at the query shard (kernel, plain, SDPA,
+          bound);
   eval    the evaluation and export entry points at 480x854: a synthetic DAVIS
           tree of three VAL videos (24, 17 and 9 frames; a third object
           appears in the second at frame 8), a reference-format checkpoint
@@ -408,11 +427,17 @@ KERNEL_CASES = {
     # the ephemeral slot, the slot being written this frame invalid; and bf16
     "spatial_S12_f32": (2, 12, 30, 54, torch.float32, 20, (10,), None, 64, (0, 27)),
     "spatial_S12_bf16": (2, 12, 30, 54, torch.bfloat16, 21, (10,), None, 64, (0, 27)),
+    # the read of phase hybrid's ranks: the reference TRAIN crop 465x465
+    # padded to 480x480 (30x30 on the /16 grid) on 2 space ranks, rank 0's
+    # 30x15 query columns, of its 2 rows x 3 objects (N = 6), against the
+    # whole bank of capacity 2 plus the ephemeral slot, the slot being
+    # written this frame invalid; and bf16
+    "hybrid_N6_S3_f32": (6, 3, 30, 30, torch.float32, 22, (1,), None, 64, (0, 15)),
+    "hybrid_N6_S3_bf16": (6, 3, 30, 30, torch.bfloat16, 23, (1,), None, 64, (0, 15)),
 }
 # inference-only reads that the backward never takes (its plain version
-# would hold tens of GB at 10 or 16 rows of S = 33; it takes no query shard)
-FWD_ONLY_CASES = ("streams_N16_S33_bf16", "streams_N16_S33_f32", "eval_N10_S33_f32",
-                  "spatial_S12_f32", "spatial_S12_bf16")
+# would hold tens of GB at 10 or 16 rows of S = 33)
+FWD_ONLY_CASES = ("streams_N16_S33_bf16", "streams_N16_S33_f32", "eval_N10_S33_f32")
 
 
 def read_args(c) -> tuple:
@@ -502,9 +527,9 @@ def check_fwd_deterministic(name) -> None:
 
 
 # the forward's determinism cases: the engine's type, the training reads' and
-# the width mesh's query shard
+# the width meshes' query shards
 FWD_DETERMINISM_CASES = ("S33_bf16", "train_S3_f32", "train_S3_bf16", "spatial_S12_f32",
-                         "spatial_S12_bf16")
+                         "spatial_S12_bf16", "hybrid_N6_S3_f32", "hybrid_N6_S3_bf16")
 
 
 def phase_kernel() -> None:
@@ -534,7 +559,7 @@ def bwd_args(c, d_out, out=None, lse=None) -> tuple:
     from rmnet_tpu_torch.ops.flash_attention import flash_memory_read_reference, tile_metadata
 
     mk, mv, q, valid = c["m_key"], c["m_val"], c["q_key"], c["slot_valid"]
-    h, w = q.shape[1:3]
+    h, w = mk.shape[2:4]
     _, z, order, counts = tile_metadata(valid, c["bboxes"], h, w)
     if out is None:
         out, lse = flash_memory_read_reference(mk, mv, q, valid, order, counts, z)
@@ -597,10 +622,17 @@ def check_bwd_deterministic(name) -> None:
         raise AssertionError(f"backward kernel {name} is not deterministic: {same}")
 
 
+# the backward's determinism cases: the training read's and the width
+# meshes' query shards
+BWD_DETERMINISM_CASES = ("train_S3_f32", "spatial_S12_f32", "spatial_S12_bf16",
+                         "hybrid_N6_S3_f32", "hybrid_N6_S3_bf16")
+
+
 def phase_kernel_bwd() -> None:
     for name in BWD_CASES:
         compare_bwd(name, bwd_case(name))
-    check_bwd_deterministic("train_S3_f32")
+    for name in BWD_DETERMINISM_CASES:
+        check_bwd_deterministic(name)
 
 
 # ----------------------------------------------------------------- engine
@@ -849,14 +881,16 @@ def read_bwd_bound(c) -> tuple:
     """Least time for the read's backward on these inputs: per in-box valid
     position 2*Q*(3*Ck + 2*Cv) operations (S = q.K, dP = dO.V, dV, dK, dQ);
     the bytes of K, V, dK, dV at those positions, q, dO and dQ, lse and D,
-    each read or written once."""
+    each read or written once (Q the query's rows, fewer than the bank's
+    h*w for a query shard)."""
     mk, mv, q = c["m_key"], c["m_val"], c["q_key"]
     N, S, h, w, Ck = mk.shape
     Cv = mv.shape[-1]
+    Q = q.shape[1] * q.shape[2]
     inbox = _inbox_positions(c)
     es = q.element_size()
-    flops = 2.0 * h * w * inbox * (3 * Ck + 2 * Cv)
-    nbytes = (2 * inbox * (Ck + Cv) + N * h * w * (2 * Ck + Cv)) * es + 2 * N * h * w * 4
+    flops = 2.0 * Q * inbox * (3 * Ck + 2 * Cv)
+    nbytes = (2 * inbox * (Ck + Cv) + N * Q * (2 * Ck + Cv)) * es + 2 * N * Q * 4
     return (*_bound(flops, nbytes, q.dtype), inbox, flops)
 
 
@@ -3459,6 +3493,223 @@ def phase_spatial(smi) -> tuple:
     return report, sum(r["launches"] for r in ranks)
 
 
+# ----------------------------------------------------------------- hybrid
+# hybrid batch x width training on the one card: a 2 x 2 grid of gloo ranks on
+# cuda:0 (NCCL takes one rank per device), world rank r at (r // 2, r % 2),
+# each holding 2 rows of the reference TRAIN batch and 15 of the 30 columns of
+# the /16 grid of the 465x465 crop padded to 480x480
+HYBRID_GRID = (2, 2)
+HYBRID_DEVICES = ("cuda:0",) * 4
+HYBRID_TIMED_STEPS = 3  # after the counted step, which warms up
+# tests/test_parallel.py:99-167's bars: the loss relative, each gradient
+# tensor's ||diff|| / ||single||, or max |diff| against the largest gradient
+HYBRID_LOSS_REL, HYBRID_GRAD_REL, HYBRID_ESCAPE = 5e-5, 5e-4, 1e-6
+HYBRID_TIMEOUT_S, HYBRID_DEADLINE_S = 120, 480
+HYBRID_VARIANTS = {"f32": {}, "bn": dict(USE_BATCH_NORM=True)}  # on the reference TRAIN
+HYBRID_DIR = OUT_DIR / "hybrid"
+
+
+def _jax_bar(got, want) -> tuple:
+    """(largest ||got - want|| / ||want||, the tensors past HYBRID_GRAD_REL
+    whose max |got - want| is past HYBRID_ESCAPE of the largest |want|)."""
+    gmax = max(w.abs().max().item() for w in want.values())
+    worst, bad = 0.0, []
+    for name, w in want.items():
+        err, ref = (got[name] - w).norm().item(), w.norm().item()
+        worst = max(worst, err / ref if ref > 0 else (0.0 if err == 0 else math.inf))
+        if err > HYBRID_GRAD_REL * ref and (got[name] - w).abs().max().item() > \
+                HYBRID_ESCAPE * gmax:
+            bad.append((name, err / (ref + 1e-30)))
+    return worst, bad
+
+
+def hybrid_single(models) -> dict:
+    """The Trainer's single-process step on the reference TRAIN batch, f32
+    with TF32 off and cuDNN deterministic, for each HYBRID_VARIANTS entry: the
+    loss, gradients and statistics of the first step (to
+    HYBRID_DIR/single.pt), its peak memory, and the ms of 2 more steps."""
+    from rmnet_tpu_torch.train import Trainer
+
+    out, ref = {}, {}
+    for name, train in HYBRID_VARIANTS.items():
+        cfg = _dp_cfg(1, train)
+        trainer = Trainer(cfg, *models)
+        batch = make_train_batch(cfg)
+        loss, peak = _peak_gb(lambda: trainer.train_step(batch))
+        # trainable BN is held by its loss and statistics (phase dp's bars)
+        ref[name] = dict(loss=loss,
+                         grads={} if train else {n: p.grad.cpu() for n, p in
+                                                 trainer.rmnet.named_parameters()
+                                                 if p.grad is not None},
+                         stats={k: v.cpu() for k, v in trainer.apply.running_stats().items()})
+        walls = _walls(lambda: trainer.train_step(batch), 2)
+        out[name] = dict(loss=loss, peak_gb=peak, step_ms=statistics.median(walls) * 1e3)
+        del trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+    HYBRID_DIR.mkdir(parents=True, exist_ok=True)
+    torch.save(ref, HYBRID_DIR / "single.pt")
+    return out
+
+
+def hybrid_worker(world) -> dict:
+    """One rank of phase hybrid: for each HYBRID_VARIANTS entry, the
+    Trainer's step on the 2 x 2 grid (DATA_PARALLEL = 2 rows of it) from the
+    weights of seed 0 on the reference TRAIN batch, with the reads' launches
+    and the collectives counted, held against the single step on world rank
+    0; for the f32 step HYBRID_TIMED_STEPS more, timed from a barrier, with
+    their collectives; a digest of the state after the steps."""
+    from rmnet_tpu_torch.models.weights import build_models
+    from rmnet_tpu_torch.ops.flash_attention import flash_memory_read as fmr
+    from rmnet_tpu_torch.ops.flash_attention import flash_read_bwd
+    from rmnet_tpu_torch.parallel import make_hybrid_mesh
+    from rmnet_tpu_torch.train import Trainer
+
+    _spatial_settings()
+    grid = make_hybrid_mesh(*HYBRID_GRID, world, HYBRID_TIMEOUT_S)
+    rmnet, tfn = build_models(seed=0)
+    models = (rmnet.state_dict(), tfn.state_dict())
+    del rmnet, tfn
+    single = torch.load(HYBRID_DIR / "single.pt", weights_only=True) if world.rank == 0 else {}
+
+    def counts():
+        return {f"{mn}: {k}": list(v) for mn, m in grid.meshes().items()
+                for k, v in m.counts.items()}
+
+    out = dict(place=(grid.data.rank, grid.space.rank))
+    for name, train in HYBRID_VARIANTS.items():
+        cfg = _dp_cfg(HYBRID_GRID[0], train)
+        batch = make_train_batch(cfg)
+        trainer = Trainer(cfg, *models, mesh=grid)
+        for m in grid.meshes().values():
+            m.counts.clear()
+        fmr.launches = fmr.captured = fmr.replayed = flash_read_bwd.launches = 0
+        loss, peak = _peak_gb(lambda: trainer.train_step(batch))
+        row = dict(loss=loss, launches=(fmr.launches, flash_read_bwd.launches),
+                   counts=counts(), peak_gb=peak)
+        if name in single:
+            ref = single[name]
+            row.update(loss_single=ref["loss"],
+                       loss_rel=abs(loss - ref["loss"]) / abs(ref["loss"]),
+                       stats_rel=_stats_rel({k: v.cpu() for k, v in
+                                             trainer.apply.running_stats().items()},
+                                            ref["stats"]) if train else None)
+            if ref["grads"]:
+                got = {n: p.grad.cpu() for n, p in trainer.rmnet.named_parameters()
+                       if p.grad is not None}
+                worst, bad = _jax_bar(got, ref["grads"])
+                row.update(grad_worst_rel=worst, grad_bad=bad[:8], n_grad_bad=len(bad),
+                           grad_median_rel=_grad_median(got, ref["grads"]))
+                del got
+        if name == "f32":
+            for m in grid.meshes().values():
+                m.counts.clear()
+            losses = []
+            walls = [_sync_ms(grid.world, lambda: losses.append(trainer.train_step(batch)), 1)
+                     for _ in range(HYBRID_TIMED_STEPS)]
+            row.update(step_ms=statistics.median(walls), walls_ms=walls, losses=losses,
+                       timed_counts=counts())
+        row["digest"] = _state_digest(trainer.rmnet)
+        out[name] = row
+        del trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def hybrid_read_times(smi) -> tuple:
+    """The forward and the backward at phase hybrid's read (KERNEL_CASES
+    hybrid_N6_S3_f32): kernel, plain and SDPA ms and the bounds."""
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    c = bank_case(*KERNEL_CASES["hybrid_N6_S3_f32"])
+    fwd = fwd_time_row(c, flush, None)
+    where = "phase hybrid's read (a 30x15 query shard, N=6, S=3, f32)"
+    log_fwd_times(where, fwd, smi)
+    N, h, w = c["q_key"].shape[:3]
+    g = torch.Generator().manual_seed(122)
+    args = bwd_args(c, torch.randn(N, h, w, c["m_val"].shape[-1], generator=g).to("cuda"))
+    bwd = bwd_time_row(c, args, flush)
+    log_bwd_times(where, bwd, KERNEL_CASES["hybrid_N6_S3_f32"][1] - 1, smi)
+    return fwd, bwd
+
+
+def phase_hybrid(smi, models) -> tuple:
+    """Hybrid batch x width training on the card: the single step first
+    (hybrid_single), then the 2 x 2 grid of gloo ranks on cuda:0
+    (hybrid_worker): the f32 step within tests/test_parallel.py's bars of
+    the single step, T-1 forward and T-1 backward read launches per rank and
+    step, finite losses and bit-identical replicas after the timed steps;
+    the trainable-BN step within phase dp's bars (loss, statistics); the
+    read at its query shard timed (hybrid_read_times) -> (report, forward
+    launches, backward launches of the counted steps)."""
+    from rmnet_tpu_torch.parallel import launch
+
+    t_phase = time.perf_counter()
+    deterministic = torch.backends.cudnn.deterministic
+    _spatial_settings()
+    try:
+        single = hybrid_single(models)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    gc.collect()
+    torch.cuda.empty_cache()
+    ranks = launch(hybrid_worker, (), HYBRID_DEVICES, "gloo", HYBRID_TIMEOUT_S,
+                   HYBRID_DEADLINE_S)
+    T = _dp_cfg(1, {}).TRAIN.N_MAX_FRAMES
+    r0 = ranks[0]
+    bad = []
+    for name in HYBRID_VARIANTS:
+        rows = [r[name] for r in ranks]
+        row = rows[0]
+        grads = ("not compared" if "n_grad_bad" not in row else
+                 f"largest ||grid - single||/||single|| {row['grad_worst_rel']:.3e} (median "
+                 f"{row['grad_median_rel']:.3e}), {row['n_grad_bad']} past {HYBRID_GRAD_REL} "
+                 f"(escape {HYBRID_ESCAPE} of the largest) {row['grad_bad'][:3]}")
+        log(f"hybrid {name}: a 2 x 2 grid of gloo ranks on cuda:0 (TF32 off, cuDNN "
+            f"deterministic), the reference TRAIN batch (B=4, T={T}, 465x465; 2 rows and 15 of "
+            f"30 /16 columns a rank): loss {row['loss']!r} against single-process "
+            f"{row['loss_single']!r} ({row['loss_rel']:.3e}); gradients {grads}; statistics "
+            f"{row['stats_rel']}; read launches per rank {[r['launches'] for r in rows]}; "
+            f"peak memory per rank {[round(r['peak_gb'], 3) for r in rows]} GB against the "
+            f"single step's {single[name]['peak_gb']:.3f}; replicas bit-identical "
+            f"{len({r['digest'] for r in rows}) == 1} [{smi}]")
+        if len({r["digest"] for r in rows}) != 1:
+            bad.append(f"{name}: replicas differ after the steps")
+        if any(r["launches"] != (T - 1, T - 1) for r in rows):
+            bad.append(f"{name}: read launches {[r['launches'] for r in rows]}")
+        if name == "bn":
+            if row["loss_rel"] > DP_BN_LOSS_REL:
+                bad.append(f"bn: loss {row['loss_rel']:.3e} past {DP_BN_LOSS_REL}")
+            if row["stats_rel"] > DP_BN_STATS_REL:
+                bad.append(f"bn: statistics {row['stats_rel']:.3e} past {DP_BN_STATS_REL}")
+        else:
+            if row["loss_rel"] > HYBRID_LOSS_REL:
+                bad.append(f"{name}: loss {row['loss_rel']:.3e} past {HYBRID_LOSS_REL}")
+            if row["n_grad_bad"]:
+                bad.append(f"{name}: gradients {row['grad_bad']}")
+    f32 = r0["f32"]
+    n = HYBRID_TIMED_STEPS
+    per_step = {k: dict(calls=v[0] / n, mb=v[1] / n / 1e6, ms=v[2] / n * 1e3)
+                for k, v in f32["timed_counts"].items()}
+    log(f"time hybrid: {f32['step_ms']:.3f} ms per step on world rank 0 (median of {n} after "
+        f"the counted step; walls {[round(x, 3) for x in f32['walls_ms']]}), losses "
+        f"{[round(x, 6) for x in f32['losses']]}, against the single step's "
+        f"{single['f32']['step_ms']:.3f} ms [{smi}]")
+    for k, v in per_step.items():
+        log(f"hybrid collective {k}: {v['calls']:.1f} calls, {v['mb']:.3f} MB, {v['ms']:.3f} ms "
+            f"per step on world rank 0 (staged through pinned host memory) [{smi}]")
+    if not all(math.isfinite(x) for r in ranks for x in r["f32"]["losses"]):
+        bad.append("non-finite losses in the timed steps")
+    fwd, bwd = hybrid_read_times(smi)
+    log(f"hybrid: the phase {time.perf_counter() - t_phase:.1f} s")
+    if bad:
+        raise AssertionError("phase hybrid: " + "; ".join(bad))
+    report = dict(card=smi, tf32="off", single=single, ranks=ranks,
+                  collectives_per_step=per_step, read_fwd=fwd, read_bwd=bwd)
+    return (report, sum(r[v]["launches"][0] for r in ranks for v in HYBRID_VARIANTS),
+            sum(r[v]["launches"][1] for r in ranks for v in HYBRID_VARIANTS))
+
+
 # -------------------------------------------------------------------- a/b
 def ab_worker(root) -> dict:
     """The main path's engine (480x854, 2 objects, memorize_every 5, T=48,
@@ -3580,6 +3831,8 @@ def main(argv=None) -> int:
     gc.collect()
     report["spatial"], by_path["spatial"] = phase_spatial(smi)
     bwd_by_path["spatial"] = 0
+    gc.collect()
+    report["hybrid"], by_path["hybrid"], bwd_by_path["hybrid"] = phase_hybrid(smi, models)
     gc.collect()
     report["eval"] = phase_eval(smi, models)
     by_path["eval"] = report["eval"]["launches"]["eager"] + report["eval"]["launches"]["replayed"]

@@ -19,8 +19,10 @@ and, given a data-parallel mesh, on the statistics of the global batch
 
 Width mesh (parallel/space.py): while ``space`` is set, a :class:`Conv2d`
 holds the rank's columns of the frame and convolves them with the halo that
-its kernel reads from the neighbours' (``WidthMesh.conv2d``); frozen
-BatchNorm is per pixel and needs nothing.
+its kernel reads from the neighbours' (``WidthMesh.conv2d``, whose backward
+hands each halo's gradient back to its owner); frozen BatchNorm is per pixel
+and needs nothing, trainable BatchNorm takes the statistics of every rank's
+columns and rows (its ``mesh`` is then the hybrid grid's world).
 """
 
 from __future__ import annotations
@@ -89,10 +91,11 @@ class BatchNorm2d(nn.BatchNorm2d):
 
     While ``mesh`` is set too, the batch is the global one of the mesh's
     ranks: the per-channel sum and sum of squares (float32, or the input's
-    type where it is wider) are summed over the ranks in one collective
-    (its backward sums their gradients), the mean and the variance
-    ``E[x^2] - mean^2`` come from them as the JAX layer takes them, and
-    ``n`` is the global count, so the statistics are the same on every
+    type where it is wider) and the element count are summed over the ranks
+    in one collective (its backward sums their gradients), the mean and the
+    variance ``E[x^2] - mean^2`` come from them as the JAX layer takes them,
+    and ``n`` is the global count, the sum of the ranks' counts (a hybrid
+    grid's width shares differ), so the statistics are the same on every
     rank."""
 
     batch_stats: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
@@ -111,17 +114,21 @@ class BatchNorm2d(nn.BatchNorm2d):
 
     def _global_batch_forward(self, x):
         xf = x.to(torch.promote_types(x.dtype, torch.float32))
-        local = torch.stack([xf.sum(dim=(0, 2, 3)), xf.square().sum(dim=(0, 2, 3))])
+        C = x.shape[1]
+        # the rank's element count rides the same collective: width shares
+        # are unequal (exact in float32 below 2^24 elements a channel)
+        local = torch.cat([xf.sum(dim=(0, 2, 3)), xf.square().sum(dim=(0, 2, 3)),
+                           xf.new_full((1,), x.numel() // C)])
         sums = all_reduce_sum(local, self.mesh, "batch norm")
-        n = x.numel() // x.shape[1] * self.mesh.size
-        mean = sums[0] / n
-        var = sums[1] / n - mean.square()
+        n = sums[-1].detach()
+        mean = sums[:C] / n
+        var = sums[C:2 * C] / n - mean.square()
         scale = torch.rsqrt(var + self.eps) * self.weight
         out = (xf - mean[:, None, None]) * scale[:, None, None] + self.bias[:, None, None]
         with torch.no_grad():
             m, (old_mean, old_var) = self.momentum, self.batch_stats
             self.new_stats = ((1 - m) * old_mean + m * mean,
-                              (1 - m) * old_var + m * var * (n / max(n - 1, 1)))
+                              (1 - m) * old_var + m * var * (n / (n - 1).clamp(min=1)))
         return out.to(x.dtype)
 
 

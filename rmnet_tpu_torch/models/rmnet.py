@@ -33,16 +33,20 @@ control flow lives in :class:`RMNetApply`, as in the JAX package:
     With a data-parallel ``mesh`` the statistics are the global batch's
     (one collective per BatchNorm call, repeated by a recompute on every
     rank alike). ``step`` is the serving step and never trains them;
-  * width-sharded inference (``space``, a width mesh of parallel/space.py,
-    which ``spatial_forward_video`` sets): ``forward_video`` runs on the
-    rank's columns of the padded frame. The encoders, heads and decoder
-    exchange halos (their modules' ``space``); ``memorize`` gathers each
-    frame's keys and values along the /16 width, so every rank's bank is the
-    single forward's; the boxes are reduced over the ranks, so they are the
-    whole frame's; the read takes the rank's query columns against the whole
-    bank; each frame's estimate is gathered once, for the next frame's warp
-    and the returned clip. Soft aggregation, injection, suppression and the
-    softmax over K are per pixel.
+  * width sharding (``space``, a width mesh of parallel/space.py, which
+    ``spatial_forward_video`` and the hybrid grid's loss set):
+    ``forward_video`` runs on the rank's columns of the padded frame. The
+    encoders, heads and decoder exchange halos (their modules' ``space``);
+    ``memorize`` gathers each frame's keys and values along the /16 width,
+    so every rank's bank is the single forward's; the boxes are reduced over
+    the ranks, so they are the whole frame's; the read takes the rank's
+    query columns against the whole bank; each frame's estimate is gathered
+    once, for the next frame's warp. Soft aggregation, injection,
+    suppression and the softmax over K are per pixel. Every parameterised
+    op runs on the rank's columns only, never on the gathered bank or
+    estimate, so summing the parameters' gradients over the ranks counts
+    each pixel once; the gathers' backward sums the ranks' partial
+    gradients of the gathered copies (parallel/space.py).
 
 Constants 32.0605 / -16.1181 (reference models/rmnet.py:442-448) equal
 log(eps / (1 - eps)) for the aggregation clamp eps = 1e-7.
@@ -166,8 +170,8 @@ class KeyValue(nn.Module):
             return self.key_conv(x), self.value_conv(x)
         # both heads are 3x3, stride 1, padding 1: one halo serves them
         x = self.space.conv_halo(x.to(self.key_conv.dtype), 3, 1, 1)
-        return tuple(F.conv2d(x, c.weight.to(c.dtype), None if c.bias is None else
-                              c.bias.to(c.dtype), 1, (1, 0))
+        return tuple(self.space.conv_extended(x, c.weight.to(c.dtype), None if c.bias is None
+                                              else c.bias.to(c.dtype), 1, 1)
                      for c in (self.key_conv, self.value_conv))
 
 
@@ -238,12 +242,14 @@ def _dense_read(m_key, m_val, q_key, slot_valid):
     query q_key (N, h, w_q, Ck): the bank's columns, or a rank's under a
     width mesh.
 
-    Scores and softmax in float32; invalid slots get -inf."""
+    Scores and softmax in float32 (or the inputs' type where it is wider);
+    invalid slots get -inf."""
     N, S, h, w, Ck = m_key.shape
     Cv = m_val.shape[-1]
     hw = h * w
-    mk = m_key.reshape(N, S * hw, Ck).float()
-    qk = q_key.reshape(N, -1, Ck).float()
+    ft = torch.promote_types(q_key.dtype, torch.float32)
+    mk = m_key.reshape(N, S * hw, Ck).to(ft)
+    qk = q_key.reshape(N, h * q_key.shape[2], Ck).to(ft)
     scores = torch.bmm(mk, qk.transpose(1, 2)) / math.sqrt(Ck)  # (N, M, Q)
     valid = slot_valid[:, :, None].expand(N, S, hw).reshape(N, S * hw)
     scores = scores.masked_fill(~valid[..., None], -math.inf)
@@ -341,10 +347,11 @@ class RMNetApply:
     # training: BatchNorm on batch statistics, the running statistics
     # threaded through forward_video (TRAIN.USE_BATCH_NORM)
     train_bn: bool = False
-    # training under TRAIN.DATA_PARALLEL: the rank's mesh, whose global batch
-    # gives trainable BatchNorm its statistics
+    # training under TRAIN.DATA_PARALLEL or on a hybrid grid: the mesh whose
+    # ranks' batch gives trainable BatchNorm its statistics (the grid's world)
     mesh: Optional[DataMesh] = None
-    # width-sharded inference (spatial_forward_video): the rank's width mesh
+    # width sharding (spatial_forward_video, the hybrid grid): the rank's
+    # width mesh
     space: Optional[WidthMesh] = None
 
     def running_stats(self):
@@ -371,6 +378,8 @@ class RMNetApply:
             fn = functools.partial(train_batch_norm, encoder, name + ".", bn, fn,
                                    mesh=self.mesh)
         if self.remat_encoders and torch.is_grad_enabled():
+            if self.space is not None:  # the recompute runs after forward_video's install
+                fn = self.space.within(encoder, fn)
             out = checkpoint(fn, *args, use_reentrant=False)
         else:
             out = fn(*args)
@@ -420,10 +429,11 @@ class RMNetApply:
         # zero slot 0 and invalid objects, mask by the /16 regional map
         keep = (att * v)[:, 1:].to(k4.dtype)[..., None]  # (B, Ko, h, w, 1)
         if self.space is None:
-            k_obj = k4.permute(0, 2, 3, 1).reshape(B, Ko, h, w, -1) * keep
-            v_obj = v4.permute(0, 2, 3, 1).reshape(B, Ko, h, w, -1) * keep
+            k_obj = k4.permute(0, 2, 3, 1).reshape(B, Ko, h, w, k4.shape[1]) * keep
+            v_obj = v4.permute(0, 2, 3, 1).reshape(B, Ko, h, w, v4.shape[1]) * keep
         else:  # the whole /16 width on every rank: one gather of both
-            kv = torch.cat([k4, v4], dim=1).reshape(B, Ko, -1, h, w) * keep[..., 0][:, :, None]
+            C = k4.shape[1] + v4.shape[1]
+            kv = torch.cat([k4, v4], dim=1).reshape(B, Ko, C, h, w) * keep[..., 0][:, :, None]
             kv = self.space.gather_grid(kv, "gather bank").permute(0, 1, 3, 4, 2)
             k_obj, v_obj = kv[..., :k4.shape[1]], kv[..., k4.shape[1]:]
         pad = (0, 0, 0, 0, 0, 0, 1, 0)
@@ -441,17 +451,19 @@ class RMNetApply:
         slot 0 never reaches the box op, so the map is the same.
 
         Under a width mesh ``prev_mask`` is the whole frame's, ``flow`` and
-        the map the rank's columns."""
+        the map the rank's columns; the training warp's gradient is then the
+        splat of the rank's own output columns onto the whole frame, which
+        the estimate's gather sums over the ranks."""
+        shard = None if self.space is None else self.space.box_shard(padded=False)
         if flow is None:
             expt = prev_mask if self.space is None else self.space.unpadded_slice(prev_mask)
         elif torch.is_grad_enabled():
             return warped_regional_attention_small(
                 prev_mask, flow.permute(0, 2, 3, 1), out_hw, offset, 16,
-                self.prob_threshold, self.n_pts_threshold, self.n_bbox_loose_pixels)
+                self.prob_threshold, self.n_pts_threshold, self.n_bbox_loose_pixels, shard)
         else:
-            x0 = 0 if self.space is None else self.space.unpadded_columns()[0]
             warped, _ = backward_warp(prev_mask[:, 1:].permute(0, 2, 3, 1),
-                                      flow.permute(0, 2, 3, 1), x0)
+                                      flow.permute(0, 2, 3, 1), 0 if shard is None else shard.x0)
             expt = F.pad(warped.permute(0, 3, 1, 2), (0, 0, 0, 0, 1, 0))
         return self._att(expt, out_hw, offset)[0]
 
@@ -476,13 +488,13 @@ class RMNetApply:
         Ko = K - 1
         N = B * Ko
         att = att_small[:, 1:].to(k4.dtype)[:, :, None]          # (B, Ko, 1, h, w)
-        q_key = (k4[:, None] * att).permute(0, 1, 3, 4, 2).reshape(N, h, w, -1)
-        q_val = (v4[:, None] * att).reshape(N, -1, h, w)
+        q_key = (k4[:, None] * att).permute(0, 1, 3, 4, 2).reshape(N, h, w, k4.shape[1])
+        q_val = (v4[:, None] * att).reshape(N, v4.shape[1], h, w)
         valid = slot_valid[:, None].expand(B, Ko, S).reshape(N, S)
         # views of the bank (a copy only when B > 1); under a width mesh the
         # bank holds the whole /16 width and the query the rank's columns
-        mk = mem_keys[:, 1:].reshape(N, S, *mem_keys.shape[3:5], -1)
-        mv = mem_values[:, 1:].reshape(N, S, *mem_values.shape[3:5], -1)
+        mk = mem_keys[:, 1:].reshape(N, S, *mem_keys.shape[3:])
+        mv = mem_values[:, 1:].reshape(N, S, *mem_values.shape[3:])
         if self.use_flash_attention:
             boxes = mem_bboxes[:, 1:].reshape(N, S, 4)
             mem, _ = flash_memory_read(mk, mv, q_key.contiguous(), valid, boxes)
@@ -599,7 +611,7 @@ class RMNetApply:
                             torch.full_like(logit, SUPPRESSED))
         return torch.softmax(logit, dim=1), exist, bn
 
-    def forward_video(self, frames, masks, flows, n_objects, bn=None):
+    def forward_video(self, frames, masks, flows, n_objects, bn=None, gathered=False):
         """Whole-clip forward with backprop through time (training; the JAX
         package's forward_video, rmnet_tpu/models/rmnet.py:921-984).
 
@@ -610,9 +622,20 @@ class RMNetApply:
         Each frame's bank is built out of place (committed slots ++ prev),
         because the memory read saves it for the backward pass. With
         ``train_bn`` -> (est, the running statistics after the clip),
-        starting from ``bn`` (default: the module's own). Under a width mesh
-        each frame runs on the rank's columns and its estimate is gathered.
+        starting from ``bn`` (default: the module's own).
+
+        Under a width mesh the inputs are the rank's rows at the whole width,
+        of which each frame runs on the rank's columns; each frame's
+        estimate is gathered whole for the next frame (its gradient summed
+        over the ranks), and est holds the rank's columns of the frame, W =
+        its share, or with ``gathered`` the whole clip as gathered.
         """
+        if self.space is None:
+            return self._forward_video(frames, masks, flows, n_objects, bn, gathered)
+        with self.space.installed(self.model):
+            return self._forward_video(frames, masks, flows, n_objects, bn, gathered)
+
+    def _forward_video(self, frames, masks, flows, n_objects, bn, gathered):
         B, T, K, H, W = masks.shape
         n_objects = np.asarray(n_objects.cpu() if torch.is_tensor(n_objects) else n_objects)
         ks = torch.arange(K, device=masks.device)
@@ -633,18 +656,19 @@ class RMNetApply:
         exist = _present_objects(own(masks[:, 0]), self.space)
         slots = [None] * capacity                  # committed (k, v, box) per slot
         cursor = 0
-        est = [masks[:, 0]]
+        est, whole = [own(masks[:, 0])], [masks[:, 0]]
 
         def flag(value, dtype=torch.bool):  # one host flag for every stream
             return torch.full((B,), value, dtype=dtype, device=masks.device)
 
         def frame_step(t, cursor, filled, prev_frame, prev_mask, exist, bn, *committed):
-            """Frame t from what frame t-1 carries -> (est_t, exist, bn, k, v,
-            box), the last three frame t-1's memory. ``filled`` flags the
-            ring slots that ``committed`` holds, as (k, v, box) in slot
-            order; when frame t-1 is committed, its memory takes slot
-            ``cursor % capacity``. Everything it reads comes in as an
-            argument, so that a rematerialised frame recomputes the same."""
+            """Frame t from what frame t-1 carries -> (est_t, the whole
+            frame's est_t, exist, bn, k, v, box), the last three frame t-1's
+            memory. ``filled`` flags the ring slots that ``committed`` holds,
+            as (k, v, box) in slot order; when frame t-1 is committed, its
+            memory takes slot ``cursor % capacity``. Everything it reads
+            comes in as an argument, so that a rematerialised frame
+            recomputes the same."""
             write = cursor % capacity if commit[t - 1] else -1
             *prev, bn = self.memorize(prev_frame, prev_mask, obj_valid, bn)
             it = iter(committed)
@@ -658,28 +682,35 @@ class RMNetApply:
             est_t, exist, bn = self._segment_frame(
                 prev_mask, exist, frames_c[:, t], own(flows_c[:, t]), own(masks[:, t]),
                 flag(bool(any_new[t])), obj_valid, keys, values, bboxes, slot_valid, bn)
-            if self.space is not None:
-                est_t = self.space.gather_unpadded(est_t, "gather estimate")
-            return (est_t, exist, bn, *prev)
+            whole_t = est_t
+            if self.space is not None:  # the last frame's only for a gathered result
+                whole_t = (self.space.gather_unpadded(est_t, "gather estimate")
+                           if t < T - 1 or gathered else None)
+            return (est_t, whole_t, exist, bn, *prev)
 
         if self.train_bn and bn is None:
             bn = self.running_stats()
+        if self.remat and torch.is_grad_enabled() and self.space is not None:
+            step_fn = self.space.within(self.model, frame_step)
+        else:
+            step_fn = frame_step
         for t in range(1, T):
             write = cursor % capacity if commit[t - 1] else -1
             filled = tuple(s is not None and i != write for i, s in enumerate(slots))
             committed = [x for i, s in enumerate(slots) if filled[i] for x in s]
             args = (t, cursor, filled, prev_frame, prev_mask, exist, bn, *committed)
             if self.remat and torch.is_grad_enabled():
-                out = checkpoint(frame_step, *args, use_reentrant=False)
+                out = checkpoint(step_fn, *args, use_reentrant=False)
             else:
-                out = frame_step(*args)
-            est_t, exist, bn, prev = out[0], out[1], out[2], out[3:]
+                out = step_fn(*args)
+            est_t, whole_t, exist, bn, prev = out[0], out[1], out[2], out[3], out[4:]
             if commit[t - 1]:
                 slots[write] = prev
             est.append(est_t)
+            whole.append(whole_t)
             cursor += int(commit[t - 1])
-            prev_mask, prev_frame = est_t, frames_c[:, t]
-        est = torch.stack(est, dim=1)
+            prev_mask, prev_frame = whole_t, frames_c[:, t]
+        est = torch.stack(whole if gathered else est, dim=1)
         return (est, bn) if self.train_bn else est
 
     def init_state(self, frame0, masks0, capacity: int, dtype=torch.float32,

@@ -11,10 +11,13 @@ Semantics of the reference CUDA op:
 The map is rasterized straight onto the nearest-sample /stride grid.
 
 Under a width mesh (parallel/space.py) a rank holds some columns of the mask
-(a :class:`ColumnShard`): its columns vote with their global x, the point
-counts are summed over the ranks and the extremes reduced in one MIN, the
-maxima negated (a rank with no hit keeps the sentinels 32767 and -1), the boxes are clamped
-to the global width, and the rank rasterizes its own grid columns.
+(a :class:`ColumnShard`, possibly none): its columns vote with their global
+x, the point counts are summed over the ranks and the extremes reduced in one
+MIN, the maxima negated (a rank with no hit keeps the sentinels 32767 and
+-1), the boxes are clamped to the global width, and the rank rasterizes its
+own grid columns. The fused training warp takes the rank's flow columns
+against the whole previous mask; its gradient is the splat of those output
+columns onto the whole frame, which the ranks' sum completes.
 
 Gradients, as the reference wrapper and the JAX package give them: the map's
 gradient with respect to the mask is constant ones, whatever the cotangent
@@ -69,8 +72,11 @@ def _bboxes(
     if shard is not None:
         xs = xs + shard.x0
         W = shard.width
-    x_min = torch.where(hit_x, xs, big).amin(dim=2)
-    x_max = torch.where(hit_x, xs, neg).amax(dim=2)
+    if hit_x.shape[2]:
+        x_min = torch.where(hit_x, xs, big).amin(dim=2)
+        x_max = torch.where(hit_x, xs, neg).amax(dim=2)
+    else:  # a rank of a width mesh that holds no column
+        x_min, x_max = big.expand(B, K), neg.expand(B, K)
     y_min = torch.where(hit_y, ys, big).amin(dim=2)
     y_max = torch.where(hit_y, ys, neg).amax(dim=2)
     if shard is not None:
@@ -153,15 +159,20 @@ def regional_attention_small(
                                          n_pts_threshold, n_bbox_loose_pixels, shard)
 
 
-def _warp_splat_ones(flow: torch.Tensor) -> torch.Tensor:
+def _warp_splat_ones(flow: torch.Tensor, x0: int = 0, width: Optional[int] = None
+                     ) -> torch.Tensor:
     """Transpose of the masked bilinear warp (ops/warp.py) applied to an
     all-ones cotangent: flow (B, H, W, 2) -> (B, H, W) float32 field
     ``omega[p] = sum_q valid(q) w_tap(q) [tap(q) == p]``, each output
     pixel's bilinear weights splatted back onto its four source taps (one
-    ``scatter_add_`` over the four taps)."""
-    B, H, W, _ = flow.shape
+    ``scatter_add_`` over the four taps). With a flow of some columns of a
+    frame of ``width`` (from global x = ``x0``), the splat of those output
+    columns onto the whole frame (B, H, width)."""
+    B, H, Wf, _ = flow.shape
+    W = Wf if width is None else width
     flow32 = flow.float()
-    x = torch.arange(W, dtype=torch.float32, device=flow.device)[None, None, :] + flow32[..., 0]
+    x = torch.arange(x0, x0 + Wf, dtype=torch.float32,
+                     device=flow.device)[None, None, :] + flow32[..., 0]
     y = torch.arange(H, dtype=torch.float32, device=flow.device)[None, :, None] + flow32[..., 1]
     x0, y0 = torch.floor(x), torch.floor(y)
     wx1, wy1 = x - x0, y - y0
@@ -187,20 +198,21 @@ class _WarpedRegionalAttentionSmall(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, mask, flow, out_hw, offset, stride, prob_threshold, n_pts_threshold,
-                n_bbox_loose_pixels):
-        warped, _ = backward_warp(mask.permute(0, 2, 3, 1), flow)
+                n_bbox_loose_pixels, shard):
+        x0, grid0 = (0, 0) if shard is None else (shard.x0, shard.grid0)
+        warped, _ = backward_warp(mask.permute(0, 2, 3, 1), flow, x0)
         bboxes = _bboxes(warped.permute(0, 3, 1, 2), prob_threshold, n_pts_threshold,
-                         n_bbox_loose_pixels)
+                         n_bbox_loose_pixels, shard)
         ctx.save_for_backward(flow)
-        ctx.mask_meta = (mask.shape, mask.dtype)
-        return _raster_small(bboxes, out_hw, offset, stride, mask.dtype)
+        ctx.mask_meta = (mask.shape, mask.dtype, x0)
+        return _raster_small(bboxes, out_hw, offset, stride, mask.dtype, grid0)
 
     @staticmethod
     def backward(ctx, g_att):
         (flow,) = ctx.saved_tensors
-        shape, dtype = ctx.mask_meta
-        omega = _warp_splat_ones(flow)
-        return (omega[:, None].expand(shape).to(dtype),) + (None,) * 7
+        shape, dtype, x0 = ctx.mask_meta
+        omega = _warp_splat_ones(flow, x0, shape[-1])
+        return (omega[:, None].expand(shape).to(dtype),) + (None,) * 8
 
 
 def warped_regional_attention_small(
@@ -212,12 +224,16 @@ def warped_regional_attention_small(
     prob_threshold: float = 0.5,
     n_pts_threshold: int = 10,
     n_bbox_loose_pixels: int = 64,
+    shard: Optional[ColumnShard] = None,
 ) -> torch.Tensor:
     """``backward_warp`` of all K channels by ``flow``, then the box map
     -> att (B, K, h, w). The training branch of ``get_att_small``: the
     map's cotangent is always the constant ones of its straight-through
     gradient, so the mask's gradient is exactly the channel-broadcast
-    splat of ones, and the flow (a data input) gets none."""
+    splat of ones, and the flow (a data input) gets none. With ``shard``,
+    ``flow`` and ``att`` hold the rank's columns, ``mask`` the whole frame:
+    the boxes are reduced over the ranks and the gradient is the splat of
+    the rank's output columns, a part of the whole frame's."""
     return _WarpedRegionalAttentionSmall.apply(mask, flow, out_hw, offset, stride,
                                                prob_threshold, n_pts_threshold,
-                                               n_bbox_loose_pixels)
+                                               n_bbox_loose_pixels, shard)

@@ -45,10 +45,10 @@ on the CPU; for CUDA tensors it launches the kernels or raises.
 
 The query may hold fewer columns than the bank: under a width mesh
 (parallel/space.py) a rank reads its query shard, (N, h, w_q, Ck), Q =
-h*w_q rows, against the whole bank of M = S*h*w positions. The forward
-kernel takes Q and h*w apart (``flash_read_fwd``'s Q and hw); the backward
-takes Q = h*w only and raises otherwise (training under a width mesh is the
-hybrid data x space slice, not ported yet).
+h*w_q rows, against the whole bank of M = S*h*w positions. Both kernels take
+Q and h*w apart (the wrappers' Q and hw). The backward of a shard gives the
+shard's dQ and the rank's part of dK/dV, the sum over its query rows; the
+bank's gather sums the parts over the ranks (its backward).
 """
 
 from __future__ import annotations
@@ -166,7 +166,8 @@ def flash_memory_read_reference(
 
     Reads exactly the positions of the listed active tiles (invalid slots
     masked), adds the closed-form mass of the ``z`` skipped valid positions
-    and applies the all-invalid guard, all in float32.
+    and applies the all-invalid guard, all in float32 (or the inputs' type
+    where it is wider: float64 on the CPU, lse too).
     """
     N, S, h, w, Ck = m_key.shape
     Cv = m_val.shape[-1]
@@ -174,12 +175,13 @@ def flash_memory_read_reference(
     M = S * hw
     use = _listed_positions(order, counts, slot_valid, hw, mt)  # (N, M)
 
-    qf = q_key.reshape(N, -1, Ck).float()
-    kf = m_key.reshape(N, M, Ck).float()
-    vf = m_val.reshape(N, M, Cv).float()
+    ft = torch.promote_types(q_key.dtype, torch.float32)
+    qf = q_key.reshape(N, h * q_key.shape[2], Ck).to(ft)
+    kf = m_key.reshape(N, M, Ck).to(ft)
+    vf = m_val.reshape(N, M, Cv).to(ft)
     s = torch.einsum("nqc,nmc->nqm", qf, kf) / math.sqrt(Ck)
     s = s.masked_fill(~use[:, None, :], -math.inf)
-    zf = z.float()[:, None]                       # (N, 1)
+    zf = z.to(ft)[:, None]                        # (N, 1)
     m = s.amax(dim=2)                             # (N, Q), -inf if nothing
     m2 = torch.where(zf > 0, torch.clamp(m, min=0.0), m)
     m2 = torch.where(torch.isfinite(m2), m2, torch.zeros_like(m2))
@@ -232,7 +234,7 @@ def flash_read_fwd_partials_reference(
     Cv = m_val.shape[-1]
     hw = h * w
     M = S * hw
-    qf = q_key.reshape(N, -1, Ck).float()
+    qf = q_key.reshape(N, h * q_key.shape[2], Ck).float()
     kf = m_key.reshape(N, M, Ck).float()
     vf = m_val.reshape(N, M, Cv).float()
     s = torch.einsum("nqc,nmc->nqm", qf, kf) / math.sqrt(Ck)
@@ -277,22 +279,24 @@ def flash_read_fwd_merge_reference(
 def flash_read_bwd_reference(
     m_key: torch.Tensor,       # (N, S, h, w, Ck)
     m_val: torch.Tensor,       # (N, S, h, w, Cv)
-    q_key: torch.Tensor,       # (N, h, w, Ck)
+    q_key: torch.Tensor,       # (N, h, w_q, Ck)
     slot_valid: torch.Tensor,  # (N, S) bool
     order: torch.Tensor,       # (N, nt) int32 compacted active tiles
     counts: torch.Tensor,      # (N,) int32
-    d_out: torch.Tensor,       # (N, h, w, Cv) cotangent of out
+    d_out: torch.Tensor,       # (N, h, w_q, Cv) cotangent of out
     lse: torch.Tensor,         # (N, Q) float32, from the forward
     delta: torch.Tensor,       # (N, Q) float32, rowsum(d_out * out)
     mt: int = KERNEL_TILE,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Plain PyTorch version of the backward kernel -> (dq (N, h, w, Ck),
-    dk_t (N, nt*mt, Ck), dv_t (N, nt*mt, Cv)), all float32.
+    """Plain PyTorch version of the backward kernel -> (dq (N, h, w_q, Ck),
+    dk_t (N, nt*mt, Ck), dv_t (N, nt*mt, Cv)), all float32, for a query of
+    Q = h*w_q rows against the bank's M = S*h*w positions.
 
     Works over exactly the valid positions of the listed active tiles:
     ``p = exp(s - lse)``, ``dV = p^T dO``, ``dS = p * (dO V^T - delta)``,
     ``dK = dS^T q * scale``, ``dQ = dS K * scale``. dk_t / dv_t are zero at
-    the positions of unlisted tiles and past M, as the kernel's are.
+    the positions of unlisted tiles and past M, as the kernel's are. In the
+    inputs' type where it is wider than float32 (float64 on the CPU).
     """
     N, S, h, w, Ck = m_key.shape
     Cv = m_val.shape[-1]
@@ -302,10 +306,12 @@ def flash_read_bwd_reference(
     scale = 1.0 / math.sqrt(Ck)
     use = _listed_positions(order, counts, slot_valid, hw, mt)  # (N, M)
 
-    qf = q_key.reshape(N, hw, Ck).float()
-    kf = m_key.reshape(N, M, Ck).float()
-    vf = m_val.reshape(N, M, Cv).float()
-    do = d_out.reshape(N, hw, Cv).float()
+    Q = h * q_key.shape[2]
+    ft = torch.promote_types(q_key.dtype, torch.float32)
+    qf = q_key.reshape(N, Q, Ck).to(ft)
+    kf = m_key.reshape(N, M, Ck).to(ft)
+    vf = m_val.reshape(N, M, Cv).to(ft)
+    do = d_out.reshape(N, Q, Cv).to(ft)
     s = torch.einsum("nqc,nmc->nqm", qf, kf) * scale
     # lse = +inf rows give exp(-inf) = 0
     p = torch.where(use[:, None, :], torch.exp(s - lse[..., None]), torch.zeros_like(s))
@@ -314,7 +320,7 @@ def flash_read_bwd_reference(
     dk = torch.einsum("nqm,nqc->nmc", ds, qf) * scale
     dq = torch.einsum("nqm,nmc->nqc", ds, kf) * scale
     pad = (0, 0, 0, Mp - M)
-    return (dq.reshape(N, h, w, Ck), torch.nn.functional.pad(dk, pad),
+    return (dq.reshape(q_key.shape[:3] + (Ck,)), torch.nn.functional.pad(dk, pad),
             torch.nn.functional.pad(dv, pad))
 
 
@@ -326,16 +332,17 @@ def merge_skipped_tiles(dk_t, dv_t, tile_active, slot_valid, q_key, d_out, lse,
 
     A skipped tile's valid positions have k = v = 0 and probability
     exp(-lse_q), so each gets dV = sum_q exp(-lse_q) dO_q and
-    dK = -scale sum_q exp(-lse_q) D_q q_q (one vector per row)."""
+    dK = -scale sum_q exp(-lse_q) D_q q_q (one vector per row), the sums
+    over the Q = h*w_q query rows of ``q_key``."""
     N, S, h, w, Ck = m_shape
     hw = h * w
     M = S * hw
+    Q = h * q_key.shape[2]
     Cv = dv_t.shape[-1]
     scale = 1.0 / math.sqrt(Ck)
     c = torch.exp(-lse)                                   # (N, Q); 0 where lse = +inf
-    dv_skip = torch.einsum("nq,nqv->nv", c, d_out.reshape(N, hw, Cv).float())
-    dk_skip = -scale * torch.einsum("nq,nqc->nc", c * delta,
-                                    q_key.reshape(N, hw, Ck).float())
+    dv_skip = torch.einsum("nq,nqv->nv", c, d_out.reshape(N, Q, Cv).float())
+    dk_skip = -scale * torch.einsum("nq,nqc->nc", c * delta, q_key.reshape(N, Q, Ck).float())
     act_pos = tile_active.repeat_interleave(mt, dim=1)[:, :M, None]
     pos_valid = slot_valid.repeat_interleave(hw, dim=1)[:, :, None]
     zero = torch.zeros((), device=dk_t.device)
@@ -502,11 +509,9 @@ class FlashMemoryRead(torch.autograd.Function):
     def backward(ctx, d_out, _d_lse):
         m_key, m_val, q_key, slot_valid, out, lse, tile_active, order, counts = (
             ctx.saved_tensors)
-        _check_full_query(m_key, q_key)
-        N = q_key.shape[0]
         d_out = d_out.to(q_key.dtype).contiguous()
         # D = rowsum(dO * O), outside the kernel as in flash_attention.py:309-311
-        delta = (d_out.float() * out.float()).sum(dim=-1).reshape(N, -1)
+        delta = (d_out.float() * out.float()).sum(dim=-1).reshape(lse.shape)
         args = (m_key, m_val, q_key, slot_valid, order, counts, d_out, lse, delta)
         if q_key.device.type == "cpu":
             dq, dk_t, dv_t = flash_read_bwd_reference(*args)
@@ -530,18 +535,11 @@ def flash_memory_read(
     coordinates (x_min, x_max, y_min, y_max), as the bank stores them; memory
     positions outside a slot's box must hold zero keys and values. On the
     CPU this runs the plain versions; on CUDA it launches the kernels.
-    Differentiable in ``m_key``, ``m_val`` and ``q_key`` (``lse`` is not)
-    where the query holds the bank's columns (w_q = w).
+    Differentiable in ``m_key``, ``m_val`` and ``q_key`` (``lse`` is not);
+    for a query shard (w_q < w) dK/dV are the shard's part, the sums over its
+    query rows.
     """
     return FlashMemoryRead.apply(m_key, m_val, q_key, slot_valid, bboxes)
-
-
-def _check_full_query(m_key, q_key) -> None:
-    if q_key.shape[2] != m_key.shape[3]:
-        raise NotImplementedError(
-            f"the read's backward takes a query of the bank's {m_key.shape[3]} columns, got "
-            f"{q_key.shape[2]}: training under a width mesh is the hybrid data x space "
-            f"slice, not ported yet")
 
 
 def fwd_splits_for(m_key, device, w_q: Optional[int] = None) -> int:
@@ -557,8 +555,8 @@ def flash_read_fwd(m_key, m_val, q_key, slot_valid, order, counts, z):
     """Launch the forward's kernels (main, then merge) on tile metadata from
     :func:`tile_metadata` (at ``KERNEL_TILE``) -> (out (N, h, w_q, Cv), lse
     (N, Q) f32) for a query of Q = h*w_q rows against the bank's M = S*h*w
-    positions. Takes CUDA tensors only and Cv = 512; adds one to
-    ``flash_memory_read.launches`` per call, or to
+    positions (a query of no row launches nothing). Takes CUDA tensors only
+    and Cv = 512; adds one to ``flash_memory_read.launches`` per launch, or to
     ``flash_memory_read.captured`` when the call is recorded into a CUDA
     graph (whoever replays the graph counts its launches in
     ``flash_memory_read.replayed``). Allocates the splits' float32
@@ -573,10 +571,12 @@ def flash_read_fwd(m_key, m_val, q_key, slot_valid, order, counts, z):
     lib = LIBRARY.load()
     Q = h * q_key.shape[2]
     dev = q_key.device
-    splits = fwd_splits_for(m_key, dev, q_key.shape[2])
-    Qp = -(-Q // _QUERY_BLOCK) * _QUERY_BLOCK
     out = torch.empty((N, h, q_key.shape[2], Cv), dtype=q_key.dtype, device=dev)
     lse = torch.empty((N, Q), dtype=torch.float32, device=dev)
+    if Q == 0:  # a rank of a width mesh that holds no column: nothing to launch
+        return out, lse
+    splits = fwd_splits_for(m_key, dev, q_key.shape[2])
+    Qp = -(-Q // _QUERY_BLOCK) * _QUERY_BLOCK
     part_acc = torch.empty((N, splits, Qp, Cv), dtype=torch.float32, device=dev)
     part_ml = torch.empty((N, splits, Qp, 2), dtype=torch.float32, device=dev)
     valid_u8 = slot_valid.to(torch.uint8).contiguous()
@@ -601,25 +601,25 @@ def flash_read_fwd(m_key, m_val, q_key, slot_valid, order, counts, z):
 
 def flash_read_bwd(m_key, m_val, q_key, slot_valid, order, counts, d_out, lse, delta):
     """Launch the backward kernels (P and dS of the listed active tiles, then
-    their dK/dV, then dQ) -> (dq (N, h, w, Ck), dk_t (N, nt*64, Ck), dv_t
+    their dK/dV, then dQ) -> (dq (N, h, w_q, Ck), dk_t (N, nt*64, Ck), dv_t
     (N, nt*64, Cv)) in the inputs' dtype, zero outside the listed tiles, like
-    :func:`flash_read_bwd_reference`. Takes CUDA tensors only; adds one to
+    :func:`flash_read_bwd_reference`, for a query of Q = h*w_q rows against
+    the bank's M = S*h*w positions. Takes CUDA tensors only; adds one to
     ``flash_read_bwd.launches`` per call. Allocates two float32 scratch
-    tensors of (N, nt, Q rounded up to 64, 64) for P and dS. Raises for a
-    query narrower than the bank."""
+    tensors of (N, nt, Q rounded up to 64, 64) for P and dS."""
     _check_cuda_inputs(m_key, m_val, q_key, slot_valid, order, counts)
-    _check_full_query(m_key, q_key)
     N, S, h, w, Ck = m_key.shape
     Cv = m_val.shape[-1]
-    Q = h * w
+    w_q = q_key.shape[2]
+    Q = h * w_q
     if Cv not in _BWD_CV:
         raise ValueError(f"the backward kernel takes Cv in {_BWD_CV}, got {Cv}")
-    _check_meta("d_out", d_out, q_key.dtype, (N, h, w, Cv), align=True)
+    _check_meta("d_out", d_out, q_key.dtype, (N, h, w_q, Cv), align=True)
     _check_meta("lse", lse, torch.float32, (N, Q))
     _check_meta("delta", delta, torch.float32, (N, Q))
     lib = BWD_LIBRARY.load()
     nt = order.shape[1]
-    dq = torch.empty((N, h, w, Ck), dtype=q_key.dtype, device=q_key.device)
+    dq = torch.empty((N, h, w_q, Ck), dtype=q_key.dtype, device=q_key.device)
     dk_t = torch.zeros((N, nt * KERNEL_TILE, Ck), dtype=q_key.dtype, device=q_key.device)
     dv_t = torch.zeros((N, nt * KERNEL_TILE, Cv), dtype=q_key.dtype, device=q_key.device)
     scratch = (N, nt, -(-Q // KERNEL_TILE) * KERNEL_TILE, KERNEL_TILE)
@@ -632,7 +632,7 @@ def flash_read_bwd(m_key, m_val, q_key, slot_valid, order, counts, d_out, lse, d
         valid_u8.data_ptr(), order.data_ptr(), counts.data_ptr(), d_out.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk_t.data_ptr(), dv_t.data_ptr(),
         p_buf.data_ptr(), ds_buf.data_ptr(),
-        N, Q, S, Q, Cv, nt, ks[0], ks[1], ks[3], vs[0], vs[1], vs[3],
+        N, Q, S, h * w, Cv, nt, ks[0], ks[1], ks[3], vs[0], vs[1], vs[3],
         1.0 / math.sqrt(Ck), torch.cuda.current_stream(q_key.device).cuda_stream,
     )
     if err != 0:

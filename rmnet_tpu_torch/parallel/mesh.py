@@ -27,7 +27,9 @@ hands host tensors to gloo as they are. An NCCL group works on the device.
 The same 1-D mesh serves the width mesh of ``spatial_forward_video``
 (parallel/space.py, re-exported here), which adds an all-gather along the
 width (``all_gather``) and all-reduces with MIN and MAX (``all_reduce_``'s
-``op``).
+``op``). A hybrid grid (``make_hybrid_mesh``) holds three: the world's, and
+the rank's row and column of the grid as process groups of their own
+(``group``); ``hybrid_shard_batch`` places a batch on it.
 
 ``rank_rows`` is the rank's share of a global batch in the layout of
 TRAIN.GRAD_ACCUM_STEPS: micro-batch j is global rows [j B/A, (j+1) B/A), as
@@ -69,11 +71,14 @@ _REDUCE_OPS = {"sum": dist.ReduceOp.SUM, "min": dist.ReduceOp.MIN, "max": dist.R
 @dataclasses.dataclass(eq=False)
 class DataMesh:
     """One rank of a 1-D mesh, along the batch or the width: its rank, the
-    number of ranks, its device and the process group's backend. ``counts`` holds the collectives it ran by kind: [calls, bytes
-    of their results, seconds]; the seconds run from the moment the
-    collective's input is on the host (a gloo group's CUDA tensor staged) to
-    the moment its result is back. ``staging`` holds the pinned host buffers
-    of a gloo group's CUDA tensors, by (shape, dtype, role)."""
+    number of ranks, its device and the process group's backend; ``group``
+    the process group (None: the world's), a row or a column of a hybrid
+    grid (:func:`make_hybrid_mesh`). ``counts`` holds the collectives it ran
+    by kind: [calls, bytes of their results, seconds]; the seconds run from
+    the moment the collective's input is on the host (a gloo group's CUDA
+    tensor staged) to the moment its result is back. ``staging`` holds the
+    pinned host buffers of a gloo group's CUDA tensors, by (shape, dtype,
+    role)."""
 
     rank: int
     size: int
@@ -81,6 +86,7 @@ class DataMesh:
     backend: str
     counts: Dict[str, list] = dataclasses.field(default_factory=dict)
     staging: Dict[tuple, torch.Tensor] = dataclasses.field(default_factory=dict)
+    group: Optional[Any] = None
 
     @property
     def comm_device(self) -> torch.device:
@@ -120,7 +126,7 @@ class DataMesh:
         """Reduce ``t`` (contiguous) over the ranks with ``op`` ("sum",
         "min" or "max"), in place."""
         reduce_op = _REDUCE_OPS[op]
-        self._run(lambda x: dist.all_reduce(x, op=reduce_op), t, kind)
+        self._run(lambda x: dist.all_reduce(x, op=reduce_op, group=self.group), t, kind)
         return t
 
     def all_gather(self, t: torch.Tensor, kind: str) -> torch.Tensor:
@@ -128,16 +134,21 @@ class DataMesh:
         order, on ``t``'s device."""
         t = t.contiguous()
         out = t.new_empty((self.size,) + tuple(t.shape))
-        self._run(lambda x, y: dist.all_gather(list(y.unbind(0)), x), t, kind, out)
+        self._run(lambda x, y: dist.all_gather(list(y.unbind(0)), x, group=self.group), t,
+                  kind, out)
         return out
 
     def broadcast_(self, t: torch.Tensor, kind: str, src: int = 0) -> torch.Tensor:
-        """``t`` (contiguous) of rank ``src`` on every rank, in place."""
-        self._run(lambda x: dist.broadcast(x, src), t, kind)
+        """``t`` (contiguous) of rank ``src`` (of this mesh) on every rank,
+        in place."""
+        root = src if self.group is None else dist.get_global_rank(self.group, src)
+        self._run(lambda x: dist.broadcast(x, root, group=self.group), t, kind)
         return t
 
     def close(self) -> None:
-        dist.destroy_process_group()
+        """Leave the process group: the world's ends every group of it."""
+        if self.group is None:
+            dist.destroy_process_group()
 
 
 def init_mesh(rank: int, size: int, init_method: str, backend: str, device,
@@ -204,6 +215,67 @@ def shard_batch(batch: Mapping[str, Any], mesh: DataMesh, accum: int = 1) -> Dic
         else:
             out[k] = np.asarray(v)[rows]
     return out
+
+
+# ------------------------------------------------------------ the hybrid grid
+@dataclasses.dataclass(eq=False)
+class HybridMesh:
+    """One rank of an n_data x n_space grid of ranks (the counterpart of
+    rmnet_tpu/parallel/mesh.py's ``make_hybrid_mesh``): ``world``, every
+    rank (BatchNorm's statistics, the parameters' gradients); ``data``, the
+    ranks of this rank's space index, which split the batch; ``space``, the
+    ranks of its data index, which split the frame width. World rank r sits
+    at (r // n_space, r % n_space), as the JAX mesh reshapes its devices."""
+
+    world: DataMesh
+    data: DataMesh
+    space: DataMesh
+
+    @property
+    def device(self) -> torch.device:
+        return self.world.device
+
+    def meshes(self) -> Dict[str, DataMesh]:
+        return {"world": self.world, "data": self.data, "space": self.space}
+
+
+def make_hybrid_mesh(n_data: int, n_space: int, world: DataMesh,
+                     timeout_s: float = DEFAULT_TIMEOUT_S) -> HybridMesh:
+    """This rank's place in an n_data x n_space grid of the ``world``'s
+    ranks (a DataMesh of the default group, as :func:`launch` and
+    :func:`init_mesh` make it). Every rank makes every row and column group,
+    in one order (a collective call on each). Raises unless the grid takes
+    exactly the world's ranks."""
+    need = n_data * n_space
+    if need > world.size:
+        raise ValueError(f"requested {need} devices, only {world.size} ranks present")
+    if need != world.size or world.group is not None:
+        raise ValueError(f"a {n_data} x {n_space} grid takes all ranks of a world, got "
+                         f"{world.size}{'' if world.group is None else ' of a subgroup'}")
+    timeout = datetime.timedelta(seconds=timeout_s)
+    rows = [dist.new_group(list(range(d * n_space, (d + 1) * n_space)), timeout=timeout)
+            for d in range(n_data)]
+    cols = [dist.new_group(list(range(s, need, n_space)), timeout=timeout)
+            for s in range(n_space)]
+    d, s = divmod(world.rank, n_space)
+    return HybridMesh(world,
+                      DataMesh(d, n_data, world.device, world.backend, group=cols[s]),
+                      DataMesh(s, n_space, world.device, world.backend, group=rows[d]))
+
+
+def hybrid_shard_batch(batch: Mapping[str, Any], mesh: HybridMesh,
+                       accum: int = 1) -> Dict[str, Any]:
+    """The rank's share of a global training batch on a hybrid grid (the
+    counterpart of rmnet_tpu/parallel/mesh.py's ``hybrid_shard_batch``):
+    its rows along "data" in the layout of :func:`rank_rows` (micro-batches
+    of TRAIN.GRAD_ACCUM_STEPS as data parallelism takes them), the same on
+    every rank of a space group. Frames, masks and flows keep the whole
+    width: ``RMNetApply.forward_video`` under the width mesh takes the
+    rank's columns of them itself (whole /16 columns of the padded frame,
+    ``WidthMesh``), as the inference path does, since the next frame's warp
+    reads the whole previous estimate; n_objects splits over "data" only, as
+    in the JAX layout."""
+    return shard_batch(batch, mesh.data, accum)
 
 
 def _buckets(tensors: Iterable[torch.Tensor]) -> Dict[torch.dtype, List[torch.Tensor]]:
@@ -388,4 +460,4 @@ def _collect(procs, results, deadline_s) -> List[Any]:
 # where its JAX counterpart lives (parallel/space.py imports nothing of this
 # module)
 from rmnet_tpu_torch.parallel.space import (WidthMesh, column_split,  # noqa: E402
-                                            spatial_forward_video)
+                                            spatial_forward_video, width_mesh)

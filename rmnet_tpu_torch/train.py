@@ -47,6 +47,17 @@ ends the run there (the others would wait in a collective): the skip rule
 holds for one process only. Flags that do not fit raise
 (:func:`check_train_flags`). Entry points run on the card unless the caller
 passes ``device="cpu"``.
+
+Hybrid batch x width training (Python API, as in the JAX package: a
+:class:`~rmnet_tpu_torch.parallel.mesh.HybridMesh` from ``make_hybrid_mesh``
+given as the ``mesh`` of :func:`make_loss_fn`, :func:`make_train_step` or
+:class:`Trainer`, the batch placed by ``hybrid_shard_batch``): the same
+step again, with each rank's rows split over the "space" ranks by frame
+width (parallel/space.py). The loss gathers the estimates over both axes
+(each rank's columns, then its rows) and the labels over the rows; trainable
+BatchNorm takes the statistics of the whole grid; the gradients are summed
+over every rank of the grid. RMNet only: TinyFlowNet takes no width halo
+(:func:`make_loss_fn` raises).
 """
 
 from __future__ import annotations
@@ -71,10 +82,12 @@ from rmnet_tpu_torch.models.tiny_flownet import TinyFlowNet
 from rmnet_tpu_torch.models.weights import build_models
 from rmnet_tpu_torch.ops.flash_attention import BWD_LIBRARY, LIBRARY
 from rmnet_tpu_torch.ops.losses import l1_loss, lovasz_loss, nll_loss
-from rmnet_tpu_torch.parallel.mesh import (DEFAULT_TIMEOUT_S, DataMesh, all_gather_rows,
-                                           all_reduce_grads, any_rank, barrier,
-                                           broadcast_tensors, default_backend, init_mesh,
-                                           launch, mesh_devices, shard_batch)
+from rmnet_tpu_torch.parallel.mesh import (DEFAULT_TIMEOUT_S, DataMesh, HybridMesh,
+                                           all_gather_rows, all_reduce_grads, any_rank,
+                                           barrier, broadcast_tensors, default_backend,
+                                           hybrid_shard_batch, init_mesh, launch, mesh_devices,
+                                           shard_batch)
+from rmnet_tpu_torch.parallel.space import width_mesh
 from rmnet_tpu_torch.test import test_net
 from rmnet_tpu_torch.utils.average_meter import AverageMeter
 from rmnet_tpu_torch.utils.checkpoint import (load_backbone_weights, load_weights_auto,
@@ -130,34 +143,61 @@ def with_remat(apply: RMNetApply, remat) -> RMNetApply:
     raise ValueError(f"unknown remat mode {remat!r}")
 
 
+def _hybrid_apply(apply: RMNetApply, mesh: HybridMesh, height: int, width: int
+                  ) -> RMNetApply:
+    """``apply`` on the rank's columns of frames of height x width, with
+    BatchNorm over the whole grid; raises where a "space" rank would hold
+    no column of the /16 grid (its convolutions would touch no weight)."""
+    space = width_mesh(mesh.space, height, width)
+    if space.holders < space.size:
+        raise ValueError(f"a width of {width} ({space.grid[-1][1]} columns of the /16 grid) "
+                         f"leaves {space.size - space.holders} of {space.size} space ranks "
+                         f"without columns: a hybrid grid trains where every rank holds some")
+    return dataclasses.replace(apply, space=space, mesh=mesh.world)
+
+
 def make_loss_fn(cfg, apply: RMNetApply, tflownet: TinyFlowNet,
-                 remat=None, mesh: Optional[DataMesh] = None) -> Callable:
+                 remat=None, mesh=None) -> Callable:
     """The training loss of the selected network: batch -> scalar tensor;
     RMNet's with ``remat`` (default TRAIN.REMAT) applied to ``apply``.
 
     A batch holds frames (B, T, H, W, 3), masks (B, T, K, H, W) one-hot,
     flows (B, T, H, W, 2) and n_objects (B, T), as the JAX package's. With
     ``apply.train_bn`` RMNet's loss takes the running statistics too and
-    returns (loss, the statistics after the batch). With a ``mesh`` the
-    batch is the rank's rows, and the loss that of the ranks' rows together:
-    the estimates and labels (flows for TinyFlowNet) are gathered in rank
-    order before the loss, the same on every rank."""
+    returns (loss, the statistics after the batch). With a ``mesh`` (a
+    DataMesh) the batch is the rank's rows, and the loss that of the ranks'
+    rows together: the estimates and labels (flows for TinyFlowNet) are
+    gathered in rank order before the loss, the same on every rank. With a
+    HybridMesh the rank runs its columns of its rows: the estimates are
+    gathered over the "space" ranks, then the rows over "data" (each
+    gather's backward keeps the rank's part of the gradient), the labels
+    over "data"; BatchNorm takes the grid's statistics. TinyFlowNet does
+    not train on a hybrid grid (raises)."""
     ignore = cfg.CONST.IGNORE_IDX
     network = cfg.TRAIN.NETWORK
     if network not in NETWORKS:
         raise ValueError(f"unknown TRAIN.NETWORK {network!r}")
+    hybrid = isinstance(mesh, HybridMesh)
+    if hybrid and network != "RMNet":
+        raise ValueError(f"TRAIN.NETWORK = {network!r} does not train on a hybrid grid: its "
+                         f"ConvTranspose2d and /2 bilinear resize take no width halo")
+    rows = mesh.data if hybrid else mesh
     if network == "RMNet":
         apply = with_remat(apply, cfg.TRAIN.REMAT if remat is None else remat)
 
     def rmnet_loss(batch, bn=None):
-        out = apply.forward_video(batch["frames"], batch["masks"], batch["flows"],
-                                  batch["n_objects"], bn)
+        run = _hybrid_apply(apply, mesh, *batch["masks"].shape[-2:]) if hybrid else apply
+        out = run.forward_video(batch["frames"], batch["masks"], batch["flows"],
+                                batch["n_objects"], bn)
         est, bn = out if apply.train_bn else (out, None)
-        probs_cl = est[:, 1:].movedim(2, -1)                 # (B, T-1, H, W, K)
+        probs = est[:, 1:]
+        if hybrid:  # the rank's columns -> the whole width
+            probs = run.space.gather_unpadded(probs, "loss gather", summed=False)
+        probs_cl = probs.movedim(2, -1)                      # (B, T-1, H, W, K)
         labels = batch["masks"][:, 1:].argmax(dim=2)         # (B, T-1, H, W)
-        if mesh is not None:
-            probs_cl = all_gather_rows(probs_cl, mesh, "loss gather")
-            labels = all_gather_rows(labels.to(torch.int32), mesh, "loss gather").long()
+        if rows is not None:
+            probs_cl = all_gather_rows(probs_cl, rows, "loss gather")
+            labels = all_gather_rows(labels.to(torch.int32), rows, "loss gather").long()
         log_probs = torch.log(probs_cl.clamp(min=1e-30))
         loss = lovasz_loss(probs_cl, labels, ignore) + nll_loss(log_probs, labels, ignore)
         return (loss, bn) if apply.train_bn else loss
@@ -173,8 +213,7 @@ def make_loss_fn(cfg, apply: RMNetApply, tflownet: TinyFlowNet,
 
 
 def make_train_step(cfg, apply: RMNetApply, tflownet: TinyFlowNet,
-                    optimizer: torch.optim.Optimizer,
-                    mesh: Optional[DataMesh] = None) -> Callable:
+                    optimizer: torch.optim.Optimizer, mesh=None) -> Callable:
     """-> step(batch, lr) -> loss (float): gradients of the selected
     network's loss, then one Adam update at ``lr``, skipped (moments
     included) when the loss is not finite.
@@ -192,8 +231,11 @@ def make_train_step(cfg, apply: RMNetApply, tflownet: TinyFlowNet,
     With a ``mesh`` the batch is the rank's rows (:func:`shard_batch`, the
     micro-batches' layout): each micro-batch's loss is that of the ranks'
     rows together, and the gradients are summed over the ranks once, after
-    the last micro-batch, before the division by n."""
+    the last micro-batch, before the division by n. A HybridMesh's batch is
+    the rank's rows from ``hybrid_shard_batch``, and the gradients are
+    summed over every rank of the grid."""
     loss_fn = make_loss_fn(cfg, apply, tflownet, mesh=mesh)
+    grad_mesh = mesh.world if isinstance(mesh, HybridMesh) else mesh
     accum = int(cfg.TRAIN.GRAD_ACCUM_STEPS)
     params = [p for group in optimizer.param_groups for p in group["params"]]
     train_bn = cfg.TRAIN.NETWORK == "RMNet" and apply.train_bn
@@ -215,8 +257,8 @@ def make_train_step(cfg, apply: RMNetApply, tflownet: TinyFlowNet,
                 loss = loss_fn(micro_batch)
             loss.backward()
             losses.append(loss.detach())
-        if mesh is not None:
-            all_reduce_grads(params, mesh)
+        if grad_mesh is not None:
+            all_reduce_grads(params, grad_mesh)
         if accum > 1:
             for p in params:
                 if p.grad is not None:
@@ -247,19 +289,23 @@ class Trainer:
     one rank of the mesh."""
 
     def __init__(self, cfg, rmnet_state: Mapping[str, torch.Tensor],
-                 tflownet_state: Mapping[str, torch.Tensor], device=None,
-                 mesh: Optional[DataMesh] = None):
+                 tflownet_state: Mapping[str, torch.Tensor], device=None, mesh=None):
         """``device=None`` means the card (the mesh's device with a
         ``mesh``); there is no fallback to the CPU. At TRAIN.DATA_PARALLEL =
         n > 1 ``mesh`` is the rank's (:func:`train_net` makes it), and every
-        rank starts from rank 0's parameters and running statistics."""
+        rank starts from rank 0's parameters and running statistics. A
+        HybridMesh trains RMNet on its grid, whose "data" ranks are
+        TRAIN.DATA_PARALLEL."""
         check_train_flags(cfg)
         n = cfg.TRAIN.DATA_PARALLEL
-        if (1 if mesh is None else mesh.size) != n:
+        hybrid = isinstance(mesh, HybridMesh)
+        rows = mesh.data if hybrid else mesh
+        if (1 if rows is None else rows.size) != n:
             raise ValueError(f"TRAIN.DATA_PARALLEL={n} needs a mesh of {n} ranks, got "
-                             f"{'none' if mesh is None else mesh.size}; train_net starts them")
+                             f"{'none' if rows is None else rows.size}; train_net starts them")
         self.device = _device(device if device is not None or mesh is None else mesh.device)
         self.cfg, self.mesh = cfg, mesh
+        world = mesh.world if hybrid else mesh
         # eval() mode (BatchNorm frozen unless train_bn), every parameter
         # trainable, float32 masters
         compute = torch.bfloat16 if cfg.TRAIN.BF16 else None
@@ -267,12 +313,12 @@ class Trainer:
                                 torch.float32).requires_grad_(True)
         self.tflownet = _on_device(functools.partial(TinyFlowNet, compute), tflownet_state,
                                    self.device, torch.float32).requires_grad_(True)
-        if mesh is not None:
+        if world is not None:
             broadcast_tensors([*self.rmnet.state_dict().values(),
-                               *self.tflownet.state_dict().values()], mesh, "parameters")
+                               *self.tflownet.state_dict().values()], world, "parameters")
         self.apply = RMNetApply(self.rmnet, memorize_every=cfg.TRAIN.MEMORIZE_EVERY,
                                 use_flash_attention=cfg.TRAIN.FLASH_ATTENTION,
-                                train_bn=cfg.TRAIN.USE_BATCH_NORM, mesh=mesh)
+                                train_bn=cfg.TRAIN.USE_BATCH_NORM, mesh=world)
         net = self.rmnet if cfg.TRAIN.NETWORK == "RMNet" else self.tflownet
         self.optimizer = make_optimizer(cfg, net.parameters())
         self._step = make_train_step(cfg, self.apply, self.tflownet, self.optimizer, mesh)
@@ -281,9 +327,13 @@ class Trainer:
         """numpy arrays or tensors -> tensors on the trainer's device, masks
         as float32 there (n_objects stays on the host: it only sets
         per-frame flags). With a mesh, ``batch`` is the global batch and
-        the result the rank's rows of it (:func:`shard_batch`)."""
-        if self.mesh is not None:
-            batch = shard_batch(batch, self.mesh, self.cfg.TRAIN.GRAD_ACCUM_STEPS)
+        the result the rank's rows of it (:func:`shard_batch`,
+        :func:`hybrid_shard_batch`)."""
+        accum = self.cfg.TRAIN.GRAD_ACCUM_STEPS
+        if isinstance(self.mesh, HybridMesh):
+            batch = hybrid_shard_batch(batch, self.mesh, accum)
+        elif self.mesh is not None:
+            batch = shard_batch(batch, self.mesh, accum)
         out = {k: torch.as_tensor(v).to(self.device) for k, v in batch.items()
                if k != "n_objects"}
         if "masks" in out:

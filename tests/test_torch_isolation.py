@@ -1,8 +1,8 @@
 """The port stands alone: no JAX and nothing of rmnet_tpu in rmnet_tpu_torch/,
 chip_smoke.py, chip_bwd_probe.py, the card's test file (which runs where JAX
-is not installed) or the data-parallel and width-mesh tests' rank functions
-(which run in processes of their own), checked on the source (ast) and on an
-import with JAX made unimportable."""
+is not installed) or the data-parallel, width-mesh and hybrid tests' rank
+functions (which run in processes of their own), checked on the source (ast)
+and on an import with JAX made unimportable."""
 
 import ast
 import subprocess
@@ -15,7 +15,7 @@ ROOT = Path(__file__).resolve().parents[1]
 SOURCES = sorted((ROOT / "rmnet_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "chip_bwd_probe.py",
     ROOT / "tests" / "test_torch_kernels_gpu.py", ROOT / "tests" / "torch_dp_ranks.py",
-    ROOT / "tests" / "torch_spatial_ranks.py"]
+    ROOT / "tests" / "torch_spatial_ranks.py", ROOT / "tests" / "torch_hybrid_ranks.py"]
 
 
 def _forbidden(module: str) -> bool:
@@ -45,7 +45,8 @@ def test_sources_found():
             "chip_smoke.py", "runner.py", "test.py", "inference.py", "datasets.py",
             "metrics.py", "transforms.py", "flow_affine.py", "build_index.py",
             "checkpoint.py", "layers.py", "eval_server.py", "eval_farm.py", "mesh.py",
-            "space.py", "torch_dp_ranks.py", "torch_spatial_ranks.py"} <= names
+            "space.py", "torch_dp_ranks.py", "torch_spatial_ranks.py",
+            "torch_hybrid_ranks.py"} <= names
     kernels = {p.name for p in (ROOT / "rmnet_tpu_torch" / "csrc").glob("*.cu")}
     assert {"flash_read_fwd.cu", "flash_read_bwd.cu"} <= kernels
     assert (ROOT / "rmnet_tpu_torch" / "csrc" / "flow_affine.cpp").exists()

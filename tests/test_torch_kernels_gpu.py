@@ -17,20 +17,21 @@ merge kernels, against the plain read and the plain split and merge): f32 at
 1e-2 of the plain output's largest magnitude, ``lse`` at 2e-4 where finite
 and +inf on the same rows. Backward (``BWD_CASES``, ``compare_bwd``): dQ, dK
 and dV each within 1e-4 (f32) or 1e-2 (bf16) of the plain gradient's largest
-magnitude. Both count one launch per call. Two forward calls
-(``check_fwd_deterministic``, bf16 at the engine's shape, the training read
-in both types and a width mesh's query shard in both types) and two
-backward calls on the f32 training read (``check_bwd_deterministic``) give
-bit-identical results.
+magnitude, the query shards of phases spatial and hybrid among them. Both
+count one launch per call. Two forward calls (``check_fwd_deterministic``,
+bf16 at the engine's shape, the training read in both types and the width
+meshes' query shards in both types) and two backward calls
+(``check_bwd_deterministic``: the f32 training read and the query shards in
+both types) give bit-identical results.
 """
 
 import pytest
 import torch
 
-from chip_smoke import (BWD_CASES, FWD_DETERMINISM_CASES, GRAPH_T, HEIGHT, KERNEL_CASES,
-                        N_OBJECTS, WIDTH, bank_case, bwd_case, check_bwd_deterministic,
-                        check_fwd_deterministic, check_update_weights, compare_bwd, compare_read,
-                        graph_engine, graphed_vs_eager, make_clip)
+from chip_smoke import (BWD_CASES, BWD_DETERMINISM_CASES, FWD_DETERMINISM_CASES, GRAPH_T,
+                        HEIGHT, KERNEL_CASES, N_OBJECTS, WIDTH, bank_case, bwd_case,
+                        check_bwd_deterministic, check_fwd_deterministic, check_update_weights,
+                        compare_bwd, compare_read, graph_engine, graphed_vs_eager, make_clip)
 from rmnet_tpu_torch.ops.flash_attention import flash_memory_read
 
 
@@ -70,9 +71,10 @@ def test_flash_read_bwd_kernel_matches_plain_version(name):
 
 
 @pytest.mark.gpu
-def test_flash_read_bwd_kernel_is_deterministic():
+@pytest.mark.parametrize("name", BWD_DETERMINISM_CASES)
+def test_flash_read_bwd_kernel_is_deterministic(name):
     _cuda()
-    check_bwd_deterministic("train_S3_f32")
+    check_bwd_deterministic(name)
 
 
 @pytest.mark.gpu

@@ -3,6 +3,7 @@
 import this module by name: it imports torch and the port, never JAX or
 rmnet_tpu, and each rank reports whether either got imported."""
 
+import dataclasses
 import sys
 
 import numpy as np
@@ -113,7 +114,9 @@ def spatial_forward(mesh, state_path, clip, x):
     spatial_forward_video on ``clip`` twice (memorize_every=1, the
     tests' loose box) with the plans cached before and after each call, the
     collectives of the first call by kind, and the width of each encoder
-    stage's output (r2, r3, r4 of both trunks, from forward hooks)."""
+    stage's output (r2, r3, r4 of both trunks, from forward hooks); then once
+    with trainable BatchNorm in float64 (the estimate and the
+    statistics)."""
     torch.set_num_threads(1)
     out = dict(ops=halo_ops(mesh, x))
     model = _model(state_path)
@@ -132,7 +135,13 @@ def spatial_forward(mesh, state_path, clip, x):
     again = spatial_forward_video(apply, *clip, mesh).numpy()
     plans.append(len(space._SPATIAL_PLANS))
     hooked = [m for m in model.modules() if getattr(m, "space", None) is not None]
+    # trainable BatchNorm in float64, where E[x^2] - mean^2 loses nothing
+    # that matters (in float32 the clip's boxes flip with the order of sums)
+    apply64 = dataclasses.replace(apply, model=_model(state_path).double(), train_bn=True)
+    bn_est, bn = spatial_forward_video(apply64, *(np.asarray(c, np.float64) for c in clip[:3]),
+                                       clip[3], mesh)
     out.update(est=est, again=again, plans=plans, counts=counts,
                widths={k: sorted(v) for k, v in widths.items()}, hooks_left=len(hooked),
+               bn_est=bn_est.numpy(), bn={k: v.numpy() for k, v in bn.items()},
                jax_imported=_jax_imported())
     return out
