@@ -25,14 +25,17 @@ Phases, in order (each raises on failure; nothing is caught):
           and bf16 and phase dp's reads (6 rows in f32 and bf16, 3 rows in
           f32), phase spatial's query shard (30x27 rows against a 30x54
           bank of S=12, f32 and bf16), phase hybrid's (30x15 rows of 6
-          objects' rows against a 30x30 bank of S=3, f32 and bf16) (f32 at
+          objects' rows against a 30x30 bank of S=3, f32 and bf16, and the
+          same read by a rank that holds no column: Q = 0, no launch, an
+          empty output and lse) (f32 at
           2e-4; bf16 within 1e-2 of the plain output's largest magnitude;
           lse at 2e-4); two calls at S33_bf16, at both training reads and at
           each query shard in both types give bit-identical out and lse;
   kernel_bwd  hold the backward kernel against its plain version on the same
           cases but the inference-only ones, the query shards among them (dQ,
           dK, dV each within 1e-4 of the plain gradient's largest magnitude
-          in f32, 1e-2 in bf16); two calls on the f32 training read and on
+          in f32, 1e-2 in bf16; at Q = 0 no launch, an empty dQ and zero
+          dK, dV); two calls on the f32 training read and on
           each query shard in both types give bit-identical gradients;
   engine  480x854, 2 objects, memorize_every=5, T=48, bf16, flash read, auto
           capacity, random weights, the chunk step captured as a CUDA graph
@@ -175,9 +178,21 @@ Phases, in order (each raises on failure; nothing is caught):
           bit-identical after them; ms per step against the single step's,
           collectives per step by kind (calls, MB, ms), peak memory per rank
           against the single step's; one step with USE_BATCH_NORM (loss
-          within 1e-4, statistics within 1e-3: phase dp's bars); the forward
-          and the backward timed at the query shard (kernel, plain, SDPA,
-          bound);
+          within 1e-4, statistics within 1e-3: phase dp's bars); variant
+          columnless, one f32 step at the crop's columns 200-215 (one /16
+          column, held by the first space rank of each row, none by the
+          second) within tests/test_parallel.py's bar, 2 forward and 2
+          backward read launches on the holding ranks and none on the
+          others, timed as the f32 step is; on every rank the single
+          step's parameters carry a gradient; the forward and the backward timed at the query shard
+          (kernel, plain, SDPA, bound);
+  hybrid_tfn  TinyFlowNet's step on the same grid (build/chip_smoke/hybrid):
+          the single step, then the reference TRAIN batch at 465x465 padded
+          to 512x512, 4 of the 8 /64 columns a rank, held to
+          tests/test_parallel.py's bar, 3 timed steps with finite losses and
+          the replicas bit-identical after them; ms per step against the
+          single step's, the halos, gathers and gradient bucket per step
+          (calls, MB, ms), peak memory per rank; no read launch;
   eval    the evaluation and export entry points at 480x854: a synthetic DAVIS
           tree of three VAL videos (24, 17 and 9 frames; a third object
           appears in the second at frame 8), a reference-format checkpoint
@@ -434,6 +449,11 @@ KERNEL_CASES = {
     # written this frame invalid; and bf16
     "hybrid_N6_S3_f32": (6, 3, 30, 30, torch.float32, 22, (1,), None, 64, (0, 15)),
     "hybrid_N6_S3_bf16": (6, 3, 30, 30, torch.bfloat16, 23, (1,), None, 64, (0, 15)),
+    # the same read on a space rank that holds no column (variant columnless
+    # of phase hybrid): a query of Q = 0 rows, which launches nothing and
+    # gives an empty output and lse, an empty dQ and zero dK/dV
+    "hybrid_N6_S3_empty_f32": (6, 3, 30, 30, torch.float32, 24, (1,), None, 64, (0, 0)),
+    "hybrid_N6_S3_empty_bf16": (6, 3, 30, 30, torch.bfloat16, 25, (1,), None, 64, (0, 0)),
 }
 # inference-only reads that the backward never takes (its plain version
 # would hold tens of GB at 10 or 16 rows of S = 33)
@@ -466,12 +486,16 @@ def plain_split_read(c):
     splits = fwd_splits_for(mk, q.device, q.shape[2])
     m, l, acc = flash_read_fwd_partials_reference(mk, mv, q, valid, order, counts, splits)
     out, lse = flash_read_fwd_merge_reference(m, l, acc, z, q.dtype)
-    return out.reshape(q.shape[:3] + (-1,)), lse, splits
+    return out.reshape(q.shape[:3] + (out.shape[-1],)), lse, splits
 
 
 def _read_agreement(out, lse, ref_out, ref_lse) -> tuple:
     """(ok, max |out - ref|, max |ref|, max |lse - ref lse|, tolerance text) at
-    the read's tolerances; +inf lse rows must match."""
+    the read's tolerances; +inf lse rows must match. A read of no query row
+    agrees where both are empty of the same shapes."""
+    if ref_out.numel() == 0:
+        ok = out.shape == ref_out.shape and lse.shape == ref_lse.shape == (out.shape[0], 0)
+        return ok, 0.0, 0.0, 0.0, "empty, of the same shapes"
     o, r = out.float(), ref_out.float()
     err, peak = (o - r).abs().max().item(), r.abs().max().item()
     fin = torch.isfinite(ref_lse)
@@ -489,16 +513,17 @@ def _read_agreement(out, lse, ref_out, ref_lse) -> tuple:
 def compare_read(name, c) -> float:
     """Kernel against its plain version on ``c`` (on the card), and against
     the plain split and merge at the wrapper's split count; raises past the
-    tolerance or unless the wrapper counted exactly one launch. Returns
-    max |out - plain|."""
+    tolerance or unless the wrapper counted exactly one launch (none for a
+    query of no row). Returns max |out - plain|."""
     from rmnet_tpu_torch.ops.flash_attention import flash_memory_read
 
+    want = 1 if c["q_key"].shape[2] else 0
     before = flash_memory_read.launches
     out, lse = flash_memory_read(**c)
     torch.cuda.synchronize()
-    if flash_memory_read.launches != before + 1:
+    if flash_memory_read.launches != before + want:
         raise AssertionError(f"{name}: the wrapper counted "
-                             f"{flash_memory_read.launches - before} launches, want 1")
+                             f"{flash_memory_read.launches - before} launches, want {want}")
     ok, err, peak, lse_err, tol = _read_agreement(out, lse, *plain_read(c))
     s_out, s_lse, splits = plain_split_read(c)
     s_ok, s_err, _, s_lse_err, _ = _read_agreement(out, lse, s_out, s_lse)
@@ -564,7 +589,7 @@ def bwd_args(c, d_out, out=None, lse=None) -> tuple:
     if out is None:
         out, lse = flash_memory_read_reference(mk, mv, q, valid, order, counts, z)
     d_out = d_out.to(q.dtype).contiguous()
-    delta = (d_out.float() * out.float()).sum(dim=-1).reshape(q.shape[0], -1)
+    delta = (d_out.float() * out.float()).sum(dim=-1).reshape(lse.shape)
     return (mk, mv, q, valid, order, counts, d_out, lse, delta)
 
 
@@ -580,22 +605,33 @@ def bwd_case(name):
 def compare_bwd(name, args) -> float:
     """Backward kernel against its plain version on ``args`` (on the card);
     raises past the tolerance or unless the wrapper counted exactly one
-    launch. Returns the largest max |g - plain| of dQ, dK, dV."""
+    launch (none for a query of no row, whose dQ must be empty and dK, dV
+    zero). Returns the largest max |g - plain| of dQ, dK, dV."""
     from rmnet_tpu_torch.ops.flash_attention import flash_read_bwd, flash_read_bwd_reference
 
+    empty = args[2].shape[2] == 0
     before = flash_read_bwd.launches
     got = flash_read_bwd(*args)
     torch.cuda.synchronize()
-    if flash_read_bwd.launches != before + 1:
+    if flash_read_bwd.launches != before + (0 if empty else 1):
         raise AssertionError(f"{name}: the wrapper counted "
-                             f"{flash_read_bwd.launches - before} launches, want 1")
+                             f"{flash_read_bwd.launches - before} launches, want "
+                             f"{0 if empty else 1}")
     ref = flash_read_bwd_reference(*args)
     bf16 = args[2].dtype == torch.bfloat16
     rel = BWD_BF16_REL_TOL if bf16 else BWD_F32_REL_TOL
     ok, errs, parts = True, [], []
     for gname, g, r in zip(("dQ", "dK", "dV"), got, ref):
-        err, peak = (g.float() - r).abs().max().item(), r.abs().max().item()
+        if g.shape != r.shape:
+            raise AssertionError(f"{name}: {gname} of shape {tuple(g.shape)}, the plain "
+                                 f"version's {tuple(r.shape)}")
+        if g.numel() == 0:
+            err = peak = 0.0
+        else:
+            err, peak = (g.float() - r).abs().max().item(), r.abs().max().item()
         good = bool(torch.isfinite(g).all()) and g.dtype == args[2].dtype and err <= rel * peak
+        if empty:
+            good &= not g.any()
         ok &= good
         errs.append(err)
         parts.append(f"{gname} {err:.3e}/{peak:.3e}")
@@ -3496,8 +3532,12 @@ def phase_spatial(smi) -> tuple:
 # ----------------------------------------------------------------- hybrid
 # hybrid batch x width training on the one card: a 2 x 2 grid of gloo ranks on
 # cuda:0 (NCCL takes one rank per device), world rank r at (r // 2, r % 2),
-# each holding 2 rows of the reference TRAIN batch and 15 of the 30 columns of
-# the /16 grid of the 465x465 crop padded to 480x480
+# each holding 2 rows of the reference TRAIN batch and its columns of the crop:
+# for RMNet 15 of the 30 columns of the /16 grid of the 465x465 crop padded to
+# 480x480, or in variant columnless the one /16 column of a 465x16 crop, held
+# by the first space rank of each row (the second holds none); for TinyFlowNet
+# (phase hybrid_tfn) 4 of the 8 columns of the /64 grid of the crop padded to
+# 512x512
 HYBRID_GRID = (2, 2)
 HYBRID_DEVICES = ("cuda:0",) * 4
 HYBRID_TIMED_STEPS = 3  # after the counted step, which warms up
@@ -3505,7 +3545,11 @@ HYBRID_TIMED_STEPS = 3  # after the counted step, which warms up
 # tensor's ||diff|| / ||single||, or max |diff| against the largest gradient
 HYBRID_LOSS_REL, HYBRID_GRAD_REL, HYBRID_ESCAPE = 5e-5, 5e-4, 1e-6
 HYBRID_TIMEOUT_S, HYBRID_DEADLINE_S = 120, 480
-HYBRID_VARIANTS = {"f32": {}, "bn": dict(USE_BATCH_NORM=True)}  # on the reference TRAIN
+# name -> (TRAIN fields on top of the reference's, the columns of the reference
+# crop that the batch keeps, or None for all of them)
+HYBRID_VARIANTS = {"f32": ({}, None), "bn": (dict(USE_BATCH_NORM=True), None),
+                   "columnless": ({}, (200, 216))}
+HYBRID_TFN_VARIANTS = {"tfn": (dict(NETWORK="TinyFlowNet"), None)}
 HYBRID_DIR = OUT_DIR / "hybrid"
 
 
@@ -3523,24 +3567,42 @@ def _jax_bar(got, want) -> tuple:
     return worst, bad
 
 
-def hybrid_single(models) -> dict:
-    """The Trainer's single-process step on the reference TRAIN batch, f32
-    with TF32 off and cuDNN deterministic, for each HYBRID_VARIANTS entry: the
-    loss, gradients and statistics of the first step (to
-    HYBRID_DIR/single.pt), its peak memory, and the ms of 2 more steps."""
+def hybrid_batch(cfg, columns=None) -> dict:
+    """The reference TRAIN batch (make_train_batch), or its ``columns``
+    [start, end) of the 465x465 crop."""
+    batch = make_train_batch(cfg)
+    if columns is None:
+        return batch
+    lo, hi = columns
+    return dict(frames=np.ascontiguousarray(batch["frames"][:, :, :, lo:hi]),
+                masks=np.ascontiguousarray(batch["masks"][..., lo:hi]),
+                flows=np.ascontiguousarray(batch["flows"][:, :, :, lo:hi]),
+                n_objects=batch["n_objects"])
+
+
+def _trained(trainer):
+    """The network that the trainer's TRAIN.NETWORK trains."""
+    return trainer.rmnet if trainer.cfg.TRAIN.NETWORK == "RMNet" else trainer.tflownet
+
+
+def hybrid_single(models, variants, path) -> dict:
+    """The Trainer's single-process step on each variant's batch, f32 with
+    TF32 off and cuDNN deterministic: the loss, gradients and statistics of
+    the first step (to ``path``), its peak memory, and the ms of 2 more
+    steps."""
     from rmnet_tpu_torch.train import Trainer
 
     out, ref = {}, {}
-    for name, train in HYBRID_VARIANTS.items():
+    for name, (train, columns) in variants.items():
         cfg = _dp_cfg(1, train)
         trainer = Trainer(cfg, *models)
-        batch = make_train_batch(cfg)
+        batch = hybrid_batch(cfg, columns)
         loss, peak = _peak_gb(lambda: trainer.train_step(batch))
         # trainable BN is held by its loss and statistics (phase dp's bars)
         ref[name] = dict(loss=loss,
-                         grads={} if train else {n: p.grad.cpu() for n, p in
-                                                 trainer.rmnet.named_parameters()
-                                                 if p.grad is not None},
+                         grads={} if train.get("USE_BATCH_NORM") else {
+                             n: p.grad.cpu() for n, p in _trained(trainer).named_parameters()
+                             if p.grad is not None},
                          stats={k: v.cpu() for k, v in trainer.apply.running_stats().items()})
         walls = _walls(lambda: trainer.train_step(batch), 2)
         out[name] = dict(loss=loss, peak_gb=peak, step_ms=statistics.median(walls) * 1e3)
@@ -3548,21 +3610,24 @@ def hybrid_single(models) -> dict:
         gc.collect()
         torch.cuda.empty_cache()
     HYBRID_DIR.mkdir(parents=True, exist_ok=True)
-    torch.save(ref, HYBRID_DIR / "single.pt")
+    torch.save(ref, path)
     return out
 
 
-def hybrid_worker(world) -> dict:
-    """One rank of phase hybrid: for each HYBRID_VARIANTS entry, the
+def hybrid_worker(world, variants, path, timed) -> dict:
+    """One rank of phase hybrid or hybrid_tfn: for each of ``variants``, the
     Trainer's step on the 2 x 2 grid (DATA_PARALLEL = 2 rows of it) from the
-    weights of seed 0 on the reference TRAIN batch, with the reads' launches
-    and the collectives counted, held against the single step on world rank
-    0; for the f32 step HYBRID_TIMED_STEPS more, timed from a barrier, with
-    their collectives; a digest of the state after the steps."""
+    weights of seed 0 on the variant's batch, with the reads' launches and
+    the collectives counted, held against the single step of ``path`` on
+    world rank 0; for each variant of ``timed`` HYBRID_TIMED_STEPS more,
+    timed from a barrier, with their collectives; the rank's columns, the parameters with
+    a gradient, a digest of the trained network after the steps."""
+    from rmnet_tpu_torch.models.tiny_flownet import CELL
     from rmnet_tpu_torch.models.weights import build_models
     from rmnet_tpu_torch.ops.flash_attention import flash_memory_read as fmr
     from rmnet_tpu_torch.ops.flash_attention import flash_read_bwd
     from rmnet_tpu_torch.parallel import make_hybrid_mesh
+    from rmnet_tpu_torch.parallel.space import width_mesh
     from rmnet_tpu_torch.train import Trainer
 
     _spatial_settings()
@@ -3570,38 +3635,44 @@ def hybrid_worker(world) -> dict:
     rmnet, tfn = build_models(seed=0)
     models = (rmnet.state_dict(), tfn.state_dict())
     del rmnet, tfn
-    single = torch.load(HYBRID_DIR / "single.pt", weights_only=True) if world.rank == 0 else {}
+    single = torch.load(path, weights_only=True) if world.rank == 0 else {}
 
     def counts():
         return {f"{mn}: {k}": list(v) for mn, m in grid.meshes().items()
                 for k, v in m.counts.items()}
 
     out = dict(place=(grid.data.rank, grid.space.rank))
-    for name, train in HYBRID_VARIANTS.items():
+    for name, (train, columns) in variants.items():
         cfg = _dp_cfg(HYBRID_GRID[0], train)
-        batch = make_train_batch(cfg)
+        batch = hybrid_batch(cfg, columns)
         trainer = Trainer(cfg, *models, mesh=grid)
+        net = _trained(trainer)
+        cell = 16 if cfg.TRAIN.NETWORK == "RMNet" else CELL
+        width = width_mesh(grid.space, *batch["masks"].shape[-2:], cell)
         for m in grid.meshes().values():
             m.counts.clear()
         fmr.launches = fmr.captured = fmr.replayed = flash_read_bwd.launches = 0
         loss, peak = _peak_gb(lambda: trainer.train_step(batch))
         row = dict(loss=loss, launches=(fmr.launches, flash_read_bwd.launches),
-                   counts=counts(), peak_gb=peak)
+                   counts=counts(), peak_gb=peak, cell=cell,
+                   columns=width.grid[grid.space.rank], holds=width.rank < width.holders,
+                   with_grad=sorted(n for n, p in net.named_parameters() if p.grad is not None))
         if name in single:
             ref = single[name]
             row.update(loss_single=ref["loss"],
                        loss_rel=abs(loss - ref["loss"]) / abs(ref["loss"]),
                        stats_rel=_stats_rel({k: v.cpu() for k, v in
                                              trainer.apply.running_stats().items()},
-                                            ref["stats"]) if train else None)
+                                            ref["stats"]) if train.get("USE_BATCH_NORM")
+                       else None)
             if ref["grads"]:
-                got = {n: p.grad.cpu() for n, p in trainer.rmnet.named_parameters()
-                       if p.grad is not None}
+                got = {n: p.grad.cpu() for n, p in net.named_parameters() if p.grad is not None}
+                row["grad_set_single"] = sorted(got) == sorted(ref["grads"])
                 worst, bad = _jax_bar(got, ref["grads"])
                 row.update(grad_worst_rel=worst, grad_bad=bad[:8], n_grad_bad=len(bad),
                            grad_median_rel=_grad_median(got, ref["grads"]))
                 del got
-        if name == "f32":
+        if name in timed:
             for m in grid.meshes().values():
                 m.counts.clear()
             losses = []
@@ -3609,9 +3680,9 @@ def hybrid_worker(world) -> dict:
                      for _ in range(HYBRID_TIMED_STEPS)]
             row.update(step_ms=statistics.median(walls), walls_ms=walls, losses=losses,
                        timed_counts=counts())
-        row["digest"] = _state_digest(trainer.rmnet)
+        row["digest"] = _state_digest(net)
         out[name] = row
-        del trainer
+        del trainer, net
         gc.collect()
         torch.cuda.empty_cache()
     return out
@@ -3633,73 +3704,99 @@ def hybrid_read_times(smi) -> tuple:
     return fwd, bwd
 
 
-def phase_hybrid(smi, models) -> tuple:
-    """Hybrid batch x width training on the card: the single step first
-    (hybrid_single), then the 2 x 2 grid of gloo ranks on cuda:0
-    (hybrid_worker): the f32 step within tests/test_parallel.py's bars of
-    the single step, T-1 forward and T-1 backward read launches per rank and
-    step, finite losses and bit-identical replicas after the timed steps;
-    the trainable-BN step within phase dp's bars (loss, statistics); the
-    read at its query shard timed (hybrid_read_times) -> (report, forward
-    launches, backward launches of the counted steps)."""
+def run_hybrid(smi, models, phase, variants, timed) -> tuple:
+    """The single steps of ``variants`` (hybrid_single), then the 2 x 2 grid
+    of gloo ranks on cuda:0 (hybrid_worker): each frozen-BN step within
+    tests/test_parallel.py's bars of the single step, every rank giving the
+    single step's parameters a gradient; T-1 forward and T-1 backward read
+    launches per step on a rank that holds columns of RMNet's frame, none on
+    the others or for TinyFlowNet; finite losses and bit-identical replicas
+    after the timed steps; the trainable-BN step within phase dp's bars (loss,
+    statistics) -> (the ranks' rows, the single steps', each timed
+    variant's collectives per step, the failures)."""
     from rmnet_tpu_torch.parallel import launch
 
-    t_phase = time.perf_counter()
+    path = HYBRID_DIR / f"single_{phase}.pt"
     deterministic = torch.backends.cudnn.deterministic
     _spatial_settings()
     try:
-        single = hybrid_single(models)
+        single = hybrid_single(models, variants, path)
     finally:
         torch.backends.cudnn.deterministic = deterministic
     gc.collect()
     torch.cuda.empty_cache()
-    ranks = launch(hybrid_worker, (), HYBRID_DEVICES, "gloo", HYBRID_TIMEOUT_S,
-                   HYBRID_DEADLINE_S)
+    ranks = launch(hybrid_worker, (variants, path, timed), HYBRID_DEVICES, "gloo",
+                   HYBRID_TIMEOUT_S, HYBRID_DEADLINE_S)
     T = _dp_cfg(1, {}).TRAIN.N_MAX_FRAMES
-    r0 = ranks[0]
     bad = []
-    for name in HYBRID_VARIANTS:
+    for name, (train, columns) in variants.items():
         rows = [r[name] for r in ranks]
         row = rows[0]
+        network = train.get("NETWORK", "RMNet")
+        want = [(T - 1, T - 1) if network == "RMNet" and r["holds"] else (0, 0) for r in rows]
+        H = 465
+        W = 465 if columns is None else columns[1] - columns[0]
         grads = ("not compared" if "n_grad_bad" not in row else
                  f"largest ||grid - single||/||single|| {row['grad_worst_rel']:.3e} (median "
                  f"{row['grad_median_rel']:.3e}), {row['n_grad_bad']} past {HYBRID_GRAD_REL} "
                  f"(escape {HYBRID_ESCAPE} of the largest) {row['grad_bad'][:3]}")
-        log(f"hybrid {name}: a 2 x 2 grid of gloo ranks on cuda:0 (TF32 off, cuDNN "
-            f"deterministic), the reference TRAIN batch (B=4, T={T}, 465x465; 2 rows and 15 of "
-            f"30 /16 columns a rank): loss {row['loss']!r} against single-process "
-            f"{row['loss_single']!r} ({row['loss_rel']:.3e}); gradients {grads}; statistics "
-            f"{row['stats_rel']}; read launches per rank {[r['launches'] for r in rows]}; "
-            f"peak memory per rank {[round(r['peak_gb'], 3) for r in rows]} GB against the "
-            f"single step's {single[name]['peak_gb']:.3f}; replicas bit-identical "
+        log(f"{phase} {name}: {network} on a 2 x 2 grid of gloo ranks on cuda:0 (TF32 off, "
+            f"cuDNN deterministic), the reference TRAIN batch (B=4, T={T}) at {H}x{W}; 2 rows "
+            f"and the /{row['cell']} grid's columns {[r['columns'] for r in rows]} by rank: "
+            f"loss {row['loss']!r} against single-process {row['loss_single']!r} "
+            f"({row['loss_rel']:.3e}); gradients {grads}; statistics {row['stats_rel']}; read "
+            f"launches per rank {[r['launches'] for r in rows]} (want {want}); parameters with "
+            f"a gradient per rank {[len(r['with_grad']) for r in rows]}; peak memory per rank "
+            f"{[round(r['peak_gb'], 3) for r in rows]} GB against the single step's "
+            f"{single[name]['peak_gb']:.3f}; replicas bit-identical "
             f"{len({r['digest'] for r in rows}) == 1} [{smi}]")
         if len({r["digest"] for r in rows}) != 1:
             bad.append(f"{name}: replicas differ after the steps")
-        if any(r["launches"] != (T - 1, T - 1) for r in rows):
-            bad.append(f"{name}: read launches {[r['launches'] for r in rows]}")
-        if name == "bn":
+        if [r["launches"] for r in rows] != want:
+            bad.append(f"{name}: read launches {[r['launches'] for r in rows]}, want {want}")
+        if len({tuple(r["with_grad"]) for r in rows}) != 1:
+            bad.append(f"{name}: the ranks give different parameters a gradient")
+        if train.get("USE_BATCH_NORM"):
             if row["loss_rel"] > DP_BN_LOSS_REL:
-                bad.append(f"bn: loss {row['loss_rel']:.3e} past {DP_BN_LOSS_REL}")
+                bad.append(f"{name}: loss {row['loss_rel']:.3e} past {DP_BN_LOSS_REL}")
             if row["stats_rel"] > DP_BN_STATS_REL:
-                bad.append(f"bn: statistics {row['stats_rel']:.3e} past {DP_BN_STATS_REL}")
+                bad.append(f"{name}: statistics {row['stats_rel']:.3e} past {DP_BN_STATS_REL}")
         else:
             if row["loss_rel"] > HYBRID_LOSS_REL:
                 bad.append(f"{name}: loss {row['loss_rel']:.3e} past {HYBRID_LOSS_REL}")
+            if not row["grad_set_single"]:
+                bad.append(f"{name}: the parameters with a gradient differ from the single "
+                           f"step's")
             if row["n_grad_bad"]:
                 bad.append(f"{name}: gradients {row['grad_bad']}")
-    f32 = r0["f32"]
     n = HYBRID_TIMED_STEPS
-    per_step = {k: dict(calls=v[0] / n, mb=v[1] / n / 1e6, ms=v[2] / n * 1e3)
-                for k, v in f32["timed_counts"].items()}
-    log(f"time hybrid: {f32['step_ms']:.3f} ms per step on world rank 0 (median of {n} after "
-        f"the counted step; walls {[round(x, 3) for x in f32['walls_ms']]}), losses "
-        f"{[round(x, 6) for x in f32['losses']]}, against the single step's "
-        f"{single['f32']['step_ms']:.3f} ms [{smi}]")
-    for k, v in per_step.items():
-        log(f"hybrid collective {k}: {v['calls']:.1f} calls, {v['mb']:.3f} MB, {v['ms']:.3f} ms "
-            f"per step on world rank 0 (staged through pinned host memory) [{smi}]")
-    if not all(math.isfinite(x) for r in ranks for x in r["f32"]["losses"]):
-        bad.append("non-finite losses in the timed steps")
+    per_step = {}
+    for name in timed:
+        row = ranks[0][name]
+        per_step[name] = {k: dict(calls=v[0] / n, mb=v[1] / n / 1e6, ms=v[2] / n * 1e3)
+                          for k, v in row["timed_counts"].items()}
+        log(f"time {phase} {name}: {row['step_ms']:.3f} ms per step on world rank 0 (median "
+            f"of {n} after the counted step; walls {[round(x, 3) for x in row['walls_ms']]}), "
+            f"losses {[round(x, 6) for x in row['losses']]}, against the single step's "
+            f"{single[name]['step_ms']:.3f} ms [{smi}]")
+        for k, v in per_step[name].items():
+            log(f"{phase} {name} collective {k}: {v['calls']:.1f} calls, {v['mb']:.3f} MB, "
+                f"{v['ms']:.3f} ms per step on world rank 0 (staged through pinned host memory) "
+                f"[{smi}]")
+        if not all(math.isfinite(x) for r in ranks for x in r[name]["losses"]):
+            bad.append(f"{name}: non-finite losses in the timed steps")
+    return ranks, single, per_step, bad
+
+
+def phase_hybrid(smi, models) -> tuple:
+    """Hybrid batch x width training of RMNet on the card (run_hybrid over
+    HYBRID_VARIANTS: f32, trainable BN, and the columnless 465x16 crop), then
+    the read at its query shard timed (hybrid_read_times); f32 and columnless
+    timed -> (report, forward
+    launches, backward launches of the counted steps)."""
+    t_phase = time.perf_counter()
+    ranks, single, per_step, bad = run_hybrid(smi, models, "hybrid", HYBRID_VARIANTS,
+                                              ("f32", "columnless"))
     fwd, bwd = hybrid_read_times(smi)
     log(f"hybrid: the phase {time.perf_counter() - t_phase:.1f} s")
     if bad:
@@ -3708,6 +3805,24 @@ def phase_hybrid(smi, models) -> tuple:
                   collectives_per_step=per_step, read_fwd=fwd, read_bwd=bwd)
     return (report, sum(r[v]["launches"][0] for r in ranks for v in HYBRID_VARIANTS),
             sum(r[v]["launches"][1] for r in ranks for v in HYBRID_VARIANTS))
+
+
+def phase_hybrid_tfn(smi, models) -> tuple:
+    """Hybrid batch x width training of TinyFlowNet on the card (run_hybrid
+    over HYBRID_TFN_VARIANTS: the reference TRAIN batch at 465x465, padded
+    to 512x512, 4 of the 8 /64 columns a rank) -> (report, forward launches,
+    backward launches of the counted step: none, TinyFlowNet reads no
+    memory)."""
+    t_phase = time.perf_counter()
+    ranks, single, per_step, bad = run_hybrid(smi, models, "hybrid_tfn", HYBRID_TFN_VARIANTS,
+                                              ("tfn",))
+    log(f"hybrid_tfn: the phase {time.perf_counter() - t_phase:.1f} s")
+    if bad:
+        raise AssertionError("phase hybrid_tfn: " + "; ".join(bad))
+    report = dict(card=smi, tf32="off", single=single, ranks=ranks,
+                  collectives_per_step=per_step)
+    return (report, sum(r["tfn"]["launches"][0] for r in ranks),
+            sum(r["tfn"]["launches"][1] for r in ranks))
 
 
 # -------------------------------------------------------------------- a/b
@@ -3833,6 +3948,9 @@ def main(argv=None) -> int:
     bwd_by_path["spatial"] = 0
     gc.collect()
     report["hybrid"], by_path["hybrid"], bwd_by_path["hybrid"] = phase_hybrid(smi, models)
+    gc.collect()
+    report["hybrid_tfn"], by_path["hybrid_tfn"], bwd_by_path["hybrid_tfn"] = phase_hybrid_tfn(
+        smi, models)
     gc.collect()
     report["eval"] = phase_eval(smi, models)
     by_path["eval"] = report["eval"]["launches"]["eager"] + report["eval"]["launches"]["replayed"]

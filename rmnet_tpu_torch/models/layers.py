@@ -17,10 +17,11 @@ runs a function with every :class:`BatchNorm2d` of a module in that mode,
 and, given a data-parallel mesh, on the statistics of the global batch
 (rmnet_tpu/nn/layers.py:150-175 under the JAX mesh: SyncBatchNorm).
 
-Width mesh (parallel/space.py): while ``space`` is set, a :class:`Conv2d`
-holds the rank's columns of the frame and convolves them with the halo that
-its kernel reads from the neighbours' (``WidthMesh.conv2d``, whose backward
-hands each halo's gradient back to its owner); frozen BatchNorm is per pixel
+Width mesh (parallel/space.py): while ``space`` is set, a :class:`Conv2d` or
+:class:`ConvTranspose2d` holds the rank's columns of the frame and convolves
+them with the halo that its kernel reads from the neighbours'
+(``WidthMesh.conv2d`` / ``conv_transpose2d``, whose backward hands each
+halo's gradient back to its owner); frozen BatchNorm is per pixel
 and needs nothing, trainable BatchNorm takes the statistics of every rank's
 columns and rows (its ``mesh`` is then the hybrid grid's world).
 """
@@ -59,17 +60,23 @@ class Conv2d(nn.Conv2d):
 
 
 class ConvTranspose2d(nn.ConvTranspose2d):
-    """nn.ConvTranspose2d computing in ``compute_dtype`` (None: the weight's)."""
+    """nn.ConvTranspose2d computing in ``compute_dtype`` (None: the weight's);
+    under a width mesh (``space``) on the rank's columns."""
 
     compute_dtype: Optional[torch.dtype] = None
+    space = None
     dtype = Conv2d.dtype
 
     def forward(self, x):
         dt = self.dtype
         bias = None if self.bias is None else self.bias.to(dt)
-        return F.conv_transpose2d(x.to(dt), self.weight.to(dt), bias, self.stride,
-                                  self.padding, self.output_padding, self.groups,
-                                  self.dilation)
+        if self.space is None:
+            return F.conv_transpose2d(x.to(dt), self.weight.to(dt), bias, self.stride,
+                                      self.padding, self.output_padding, self.groups,
+                                      self.dilation)
+        return self.space.conv_transpose2d(x.to(dt), self.weight.to(dt), bias, self.stride,
+                                           self.padding, self.output_padding, self.groups,
+                                           self.dilation)
 
 
 def set_compute_dtype(module: nn.Module, dtype: Optional[torch.dtype]) -> nn.Module:

@@ -604,9 +604,11 @@ def flash_read_bwd(m_key, m_val, q_key, slot_valid, order, counts, d_out, lse, d
     their dK/dV, then dQ) -> (dq (N, h, w_q, Ck), dk_t (N, nt*64, Ck), dv_t
     (N, nt*64, Cv)) in the inputs' dtype, zero outside the listed tiles, like
     :func:`flash_read_bwd_reference`, for a query of Q = h*w_q rows against
-    the bank's M = S*h*w positions. Takes CUDA tensors only; adds one to
-    ``flash_read_bwd.launches`` per call. Allocates two float32 scratch
-    tensors of (N, nt, Q rounded up to 64, 64) for P and dS."""
+    the bank's M = S*h*w positions. A query of no row (a rank of a width mesh
+    that holds no column) launches nothing: dq is empty, dk_t and dv_t zero.
+    Takes CUDA tensors only; adds one to ``flash_read_bwd.launches`` per
+    launching call. Allocates two float32 scratch tensors of (N, nt, Q
+    rounded up to 64, 64) for P and dS."""
     _check_cuda_inputs(m_key, m_val, q_key, slot_valid, order, counts)
     N, S, h, w, Ck = m_key.shape
     Cv = m_val.shape[-1]
@@ -622,6 +624,8 @@ def flash_read_bwd(m_key, m_val, q_key, slot_valid, order, counts, d_out, lse, d
     dq = torch.empty((N, h, w_q, Ck), dtype=q_key.dtype, device=q_key.device)
     dk_t = torch.zeros((N, nt * KERNEL_TILE, Ck), dtype=q_key.dtype, device=q_key.device)
     dv_t = torch.zeros((N, nt * KERNEL_TILE, Cv), dtype=q_key.dtype, device=q_key.device)
+    if Q == 0:  # a rank of a width mesh that holds no column: nothing to launch
+        return dq, dk_t, dv_t
     scratch = (N, nt, -(-Q // KERNEL_TILE) * KERNEL_TILE, KERNEL_TILE)
     p_buf = torch.empty(scratch, dtype=torch.float32, device=q_key.device)
     ds_buf = torch.empty(scratch, dtype=torch.float32, device=q_key.device)

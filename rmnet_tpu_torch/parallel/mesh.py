@@ -302,7 +302,9 @@ def broadcast_tensors(tensors: Iterable[torch.Tensor], mesh: DataMesh, kind: str
 def all_reduce_grads(params: Iterable[torch.nn.Parameter], mesh: DataMesh) -> None:
     """Sum the gradients of ``params`` over the ranks, in place: one
     all-reduce of a flat bucket per dtype (parameters without a gradient
-    have none on any rank: every rank runs the same graph)."""
+    have none on any rank: every rank runs the same graph, a rank of a width
+    mesh that holds no column too, whose ops give its weights a zero
+    gradient; parallel/space.py)."""
     grads = [p.grad for p in params if p.grad is not None]
     for group in _buckets(grads).values():
         flat = torch.cat([g.reshape(-1) for g in group])

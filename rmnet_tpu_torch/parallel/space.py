@@ -1,4 +1,4 @@
-"""Width-sharded RMNet: whole-clip inference (counterpart of
+"""Width-sharded RMNet and TinyFlowNet: whole-clip inference (counterpart of
 rmnet_tpu/parallel/mesh.py's ``spatial_forward_video``) and the width axis of
 hybrid batch x width training (``make_hybrid_mesh``, parallel/mesh.py).
 
@@ -10,21 +10,27 @@ shard edge is an explicit collective of the rank's
 :class:`~rmnet_tpu_torch.parallel.mesh.DataMesh`, with its transpose written
 out for the backward pass:
 
-  * the working layout: each rank holds whole /16 columns of the frame padded
-    to a multiple of 16 (``divide_pads``), as evenly as the ranks divide them,
-    so every stride of the trunks (2, 4, 8, 16) divides each shard's first
-    column and a strided layer keeps the columns that it keeps in the single
-    forward; only the two edge ranks hold padding. Where the /16 grid has
-    fewer columns than ranks, the last ranks hold none: they take part in
-    every collective, and the halos and the edges count only the ranks that
-    hold columns;
+  * the working layout: each rank holds whole columns of the network's
+    coarsest grid, /16 for RMNet and /64 for TinyFlowNet (``cell``), of the
+    frame padded to a multiple of ``cell`` (``divide_pads``), as evenly as the
+    ranks divide them, so every stride of the network (2 to 16, or 2 to 64)
+    divides each shard's first column and a strided layer keeps the columns
+    that it keeps in the single forward; only the two edge ranks hold
+    padding. Where the grid has fewer columns than ranks, the last ranks hold
+    none: they take part in every collective, and the halos and the edges
+    count only the ranks that hold columns. An op of such a rank returns an
+    empty tensor that depends on the op's input and weights with a zero
+    gradient (``_NoColumns``), so that its backward reaches the same
+    collectives and gives the same parameters a gradient as a holder's;
   * halo exchanges (``halo``: one all-gather of every rank's edge columns,
     which has no ordering to deadlock on) before each convolution wider than
-    1 (``conv2d``), the stem's max pool (``max_pool``) and each bilinear
-    upsample (``upsample``), which then run on the extended slice with no
-    width padding. The backward is the all-gather's transpose: one all-gather
-    of the halos' gradients, each added to the columns its owner holds (the
-    pool's gradient reaches the argmax, which may lie in a halo);
+    1 (``conv2d``), each transposed convolution (``conv_transpose2d``), the
+    stem's max pool (``max_pool``) and each bilinear upsample (``upsample``),
+    which then run on the extended slice with no width padding; the /2
+    bilinear resize (``downsample2``) reads only its own columns. The
+    backward is the all-gather's transpose: one all-gather of the halos'
+    gradients, each added to the columns its owner holds (the pool's
+    gradient reaches the argmax, which may lie in a halo);
   * all-reduces SUM and MIN for the regional boxes (ops/att_map.py) and MAX
     for the objects present; the boxes' gradient is the constant ones of
     their straight-through rule, so their backward has no collective;
@@ -61,7 +67,7 @@ import torch.nn.functional as F
 from rmnet_tpu_torch.ops.att_map import ColumnShard
 from rmnet_tpu_torch.ops.pad import divide_pads
 
-_GRID = 16  # full-resolution columns per column of the coarsest (/16) grid
+_GRID = 16  # RMNet's cell: full-resolution columns per column of its coarsest (/16) grid
 
 
 def column_split(n_columns: int, size: int) -> List[Tuple[int, int]]:
@@ -77,20 +83,23 @@ def column_split(n_columns: int, size: int) -> List[Tuple[int, int]]:
 @dataclasses.dataclass(eq=False)
 class WidthMesh:
     """One rank of a width mesh over frames of H x W: the rank's mesh, the
-    (lw, uw, lh, uh) padding to a multiple of 16 and every
-    rank's [start, end) on the /16 grid of the padded frame."""
+    (lw, uw, lh, uh) padding to a multiple of ``cell`` and every rank's
+    [start, end) on the coarsest grid of the padded frame, whose columns are
+    ``cell`` full-resolution columns wide (16 for RMNet, 64 for
+    TinyFlowNet)."""
 
     mesh: "DataMesh"  # noqa: F821  (parallel/mesh.py, which imports this module)
     height: int
     width: int
     pads: Tuple[int, int, int, int]
     grid: Tuple[Tuple[int, int], ...]
+    cell: int = _GRID
 
     @classmethod
-    def build(cls, mesh, height: int, width: int) -> "WidthMesh":
-        pads = divide_pads(height, width, _GRID)
-        n_columns = (width + pads[0] + pads[1]) // _GRID
-        return cls(mesh, height, width, pads, tuple(column_split(n_columns, mesh.size)))
+    def build(cls, mesh, height: int, width: int, cell: int = _GRID) -> "WidthMesh":
+        pads = divide_pads(height, width, cell)
+        n_columns = (width + pads[0] + pads[1]) // cell
+        return cls(mesh, height, width, pads, tuple(column_split(n_columns, mesh.size)), cell)
 
     @property
     def rank(self) -> int:
@@ -107,7 +116,7 @@ class WidthMesh:
 
     @property
     def padded_width(self) -> int:
-        return self.grid[-1][1] * _GRID
+        return self.grid[-1][1] * self.cell
 
     def _neighbours(self) -> Tuple[bool, bool]:
         """Whether this rank has a left and a right neighbour that holds
@@ -117,9 +126,9 @@ class WidthMesh:
 
     def columns(self, scale: int, rank: Optional[int] = None) -> Tuple[int, int]:
         """[start, end) of a rank's columns (default: this rank's) at
-        resolution /``scale`` (1, 2, 4, 8 or 16) of the padded frame."""
+        resolution /``scale`` (a divisor of ``cell``) of the padded frame."""
         lo, hi = self.grid[self.rank if rank is None else rank]
-        return lo * _GRID // scale, hi * _GRID // scale
+        return lo * self.cell // scale, hi * self.cell // scale
 
     def unpadded_columns(self, rank: Optional[int] = None) -> Tuple[int, int]:
         """[start, end) of a rank's columns of the frame before padding."""
@@ -176,22 +185,22 @@ class WidthMesh:
         return self.gather(x, widths, kind, summed)
 
     def gather_grid(self, x: torch.Tensor, kind: str) -> torch.Tensor:
-        """The whole /16 grid's width of ``x`` (.., rank's /16 columns)."""
+        """The whole grid's width of ``x`` (.., rank's columns of the grid)."""
         return self.gather(x, [hi - lo for lo, hi in self.grid], kind)
 
     def _per_column(self, x: torch.Tensor) -> int:
         """Columns of ``x`` (..., the rank's columns at some resolution) per
-        column of the /16 grid; raises for a tensor not in the layout. A
-        rank without columns takes the scale from the rows: every tensor of
-        the model is at one scale along both axes."""
+        column of the grid; raises for a tensor not in the layout. A rank
+        without columns takes the scale from the rows: every tensor of the
+        model is at one scale along both axes."""
         lo, hi = self.grid[self.rank]
         if hi == lo:
-            per, rest = divmod(x.shape[-2] * _GRID, self.height + self.pads[2] + self.pads[3])
+            per, rest = divmod(x.shape[-2] * self.cell, self.height + self.pads[2] + self.pads[3])
         else:
             per, rest = divmod(x.shape[-1], hi - lo)
         if rest or per == 0:
             raise ValueError(f"{x.shape[-1]} columns are not this rank's {hi - lo} columns "
-                             f"of the /16 grid at any resolution")
+                             f"of the /{self.cell} grid at any resolution")
         return per
 
     def _check_stride(self, x: torch.Tensor, stride: int) -> None:
@@ -274,7 +283,7 @@ class WidthMesh:
         if x.shape[-1] == 0:
             rows = (x.shape[-2] + 2 * pad_rows - dilation[0] * (weight.shape[-2] - 1) - 1) \
                 // stride[0] + 1
-            return x.new_zeros((x.shape[0], weight.shape[0], rows, 0))
+            return _NoColumns.apply((x.shape[0], weight.shape[0], rows, 0), x, weight, bias)
         return F.conv2d(x, weight, bias, stride, (pad_rows, 0), dilation, groups)
 
     def conv2d(self, x, weight, bias, stride, padding, dilation=(1, 1), groups=1):
@@ -292,8 +301,48 @@ class WidthMesh:
         x = self.halo(x, padding, max(0, kernel - padding - stride), -math.inf)
         if x.shape[-1] == 0:
             rows = (x.shape[-2] + 2 * padding - kernel) // stride + 1
-            return x.new_zeros(x.shape[:-2] + (rows, 0))
+            return _NoColumns.apply(x.shape[:-2] + (rows, 0), x)
         return F.max_pool2d(x, kernel, stride, (padding, 0))
+
+    def conv_transpose2d(self, x, weight, bias, stride, padding, output_padding=(0, 0),
+                         groups=1, dilation=(1, 1)):
+        """``F.conv_transpose2d`` of the rank's columns. Output column o
+        reads input columns i with 0 <= o + p - s i < k, so the shard's
+        outputs [s lo, s hi) read ceil((k - 1 - p) / s) columns of the left
+        neighbour and (s - 1 + p) // s of the right one (1 and 1 at k = 4,
+        s = 2, p = 1), zeros beyond the global edges, as the transposed
+        conv's own padding has no input there; the extended slice is
+        convolved with no width padding and its outputs cropped to the
+        shard's s * w columns."""
+        stride, padding, output_padding, dilation = (
+            _pair(v) for v in (stride, padding, output_padding, dilation))
+        if output_padding[1] or dilation[1] != 1:
+            raise ValueError("a width-sharded transposed convolution takes no output padding "
+                             "or dilation along the width")
+        k, s, p = weight.shape[-1], stride[1], padding[1]
+        left = -(-(k - 1 - p) // s)
+        w = x.shape[-1]
+        x = self.halo(x, left, (s - 1 + p) // s, 0.0)
+        if w == 0:
+            rows = ((x.shape[-2] - 1) * stride[0] - 2 * padding[0]
+                    + dilation[0] * (weight.shape[-2] - 1) + output_padding[0] + 1)
+            return _NoColumns.apply((x.shape[0], weight.shape[1] * groups, rows, 0), x, weight,
+                                    bias)
+        y = F.conv_transpose2d(x, weight, bias, stride, (padding[0], 0), (output_padding[0], 0),
+                               groups, dilation)
+        first = s * left + p
+        return y[..., first:first + s * w]
+
+    def downsample2(self, x):
+        """The /2 bilinear ``F.interpolate`` (align_corners=False) of the
+        rank's columns: output column j is the mean of input columns 2j and
+        2j + 1, so a shard whose first column is even needs no halo."""
+        self._check_stride(x, 2)
+        rows = x.shape[-2] // 2
+        if x.shape[-1] == 0:
+            return _NoColumns.apply(x.shape[:-2] + (rows, 0), x)
+        return F.interpolate(x, size=(rows, x.shape[-1] // 2), mode="bilinear",
+                             align_corners=False)
 
     def upsample(self, x, factor: int):
         """Bilinear ``F.interpolate`` by ``factor`` (align_corners=False) of
@@ -304,7 +353,7 @@ class WidthMesh:
         w = x.shape[-1]
         x = self.halo(x, 1, 1, None)
         if w == 0:
-            return x.new_zeros(x.shape[:-2] + (x.shape[-2] * factor, 0))
+            return _NoColumns.apply(x.shape[:-2] + (x.shape[-2] * factor, 0), x)
         left = factor if self._neighbours()[0] else 0
         up = F.interpolate(x, size=(x.shape[-2] * factor, x.shape[-1] * factor),
                            mode="bilinear", align_corners=False)
@@ -337,6 +386,25 @@ class WidthMesh:
 
 def _pair(v) -> Tuple[int, int]:
     return tuple(v) if isinstance(v, (tuple, list)) else (v, v)
+
+
+class _NoColumns(torch.autograd.Function):
+    """The output of an op on a rank without columns: zeros of ``shape`` (no
+    column), in the dtype of the first input, that depend on the op's
+    ``inputs`` (None for an absent bias) with a zero gradient. The rank's
+    graph then holds every op and every weight that a holder's does: its
+    backward issues the same collectives, and the same parameters get a
+    gradient (zeros), so the gradient bucket is the same on every rank."""
+
+    @staticmethod
+    def forward(ctx, shape, *inputs):
+        ctx.metas = [None if t is None else (t.shape, t.dtype, t.device) for t in inputs]
+        return inputs[0].new_zeros(shape)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (None, *(None if m is None else torch.zeros(m[0], dtype=m[1], device=m[2])
+                        for m in ctx.metas))
 
 
 class _Halo(torch.autograd.Function):
@@ -375,20 +443,20 @@ class _GatherColumns(torch.autograd.Function):
         return g[..., lo:hi], None, None, None, None
 
 
-# the width meshes that calls build, keyed by (the mesh, the frame size):
+# the width meshes that calls build, keyed by (the mesh, the frame size, the cell):
 # each with its column ranges at every resolution and, through its DataMesh,
 # the pinned staging buffers. It holds no weights: a repeated call on the
 # same mesh and geometry builds nothing, and a model is not kept alive by it
 _SPATIAL_PLANS: dict = {}
 
 
-def width_mesh(mesh, height: int, width: int) -> WidthMesh:
-    """The width mesh of ``mesh``'s ranks over frames of height x width,
-    built once per mesh and size."""
-    key = (mesh, (height, width))
+def width_mesh(mesh, height: int, width: int, cell: int = _GRID) -> WidthMesh:
+    """The width mesh of ``mesh``'s ranks over frames of height x width on
+    the grid of ``cell`` columns, built once per mesh, size and cell."""
+    key = (mesh, (height, width), cell)
     plan = _SPATIAL_PLANS.get(key)
     if plan is None:
-        plan = _SPATIAL_PLANS[key] = WidthMesh.build(mesh, height, width)
+        plan = _SPATIAL_PLANS[key] = WidthMesh.build(mesh, height, width, cell)
     return plan
 
 

@@ -56,8 +56,10 @@ step again, with each rank's rows split over the "space" ranks by frame
 width (parallel/space.py). The loss gathers the estimates over both axes
 (each rank's columns, then its rows) and the labels over the rows; trainable
 BatchNorm takes the statistics of the whole grid; the gradients are summed
-over every rank of the grid. RMNet only: TinyFlowNet takes no width halo
-(:func:`make_loss_fn` raises).
+over every rank of the grid. RMNet runs on whole columns of its /16 grid,
+TinyFlowNet (its flows gathered likewise, the given flows over the rows) on
+whole columns of its /64 grid; a rank that holds no column takes part in
+every collective and adds zeros to the gradient.
 """
 
 from __future__ import annotations
@@ -78,7 +80,7 @@ import torch
 from rmnet_tpu_torch.data import DataLoader, DatasetCollector, DatasetSubset
 from rmnet_tpu_torch.engine import InferenceEngine, _on_device
 from rmnet_tpu_torch.models.rmnet import RMNet, RMNetApply
-from rmnet_tpu_torch.models.tiny_flownet import TinyFlowNet
+from rmnet_tpu_torch.models.tiny_flownet import CELL as TFN_CELL, TinyFlowNet
 from rmnet_tpu_torch.models.weights import build_models
 from rmnet_tpu_torch.ops.flash_attention import BWD_LIBRARY, LIBRARY
 from rmnet_tpu_torch.ops.losses import l1_loss, lovasz_loss, nll_loss
@@ -146,14 +148,11 @@ def with_remat(apply: RMNetApply, remat) -> RMNetApply:
 def _hybrid_apply(apply: RMNetApply, mesh: HybridMesh, height: int, width: int
                   ) -> RMNetApply:
     """``apply`` on the rank's columns of frames of height x width, with
-    BatchNorm over the whole grid; raises where a "space" rank would hold
-    no column of the /16 grid (its convolutions would touch no weight)."""
-    space = width_mesh(mesh.space, height, width)
-    if space.holders < space.size:
-        raise ValueError(f"a width of {width} ({space.grid[-1][1]} columns of the /16 grid) "
-                         f"leaves {space.size - space.holders} of {space.size} space ranks "
-                         f"without columns: a hybrid grid trains where every rank holds some")
-    return dataclasses.replace(apply, space=space, mesh=mesh.world)
+    BatchNorm over the whole grid. A "space" rank that holds no column of
+    the /16 grid takes part all the same: its ops give empty results that
+    depend on their weights with a zero gradient (parallel/space.py)."""
+    return dataclasses.replace(apply, space=width_mesh(mesh.space, height, width),
+                               mesh=mesh.world)
 
 
 def make_loss_fn(cfg, apply: RMNetApply, tflownet: TinyFlowNet,
@@ -171,16 +170,14 @@ def make_loss_fn(cfg, apply: RMNetApply, tflownet: TinyFlowNet,
     HybridMesh the rank runs its columns of its rows: the estimates are
     gathered over the "space" ranks, then the rows over "data" (each
     gather's backward keeps the rank's part of the gradient), the labels
-    over "data"; BatchNorm takes the grid's statistics. TinyFlowNet does
-    not train on a hybrid grid (raises)."""
+    over "data"; BatchNorm takes the grid's statistics. TinyFlowNet runs its
+    /64 columns of its rows (``tiny_flownet.CELL``), its flows gathered over
+    "space", then with the given flows over "data"."""
     ignore = cfg.CONST.IGNORE_IDX
     network = cfg.TRAIN.NETWORK
     if network not in NETWORKS:
         raise ValueError(f"unknown TRAIN.NETWORK {network!r}")
     hybrid = isinstance(mesh, HybridMesh)
-    if hybrid and network != "RMNet":
-        raise ValueError(f"TRAIN.NETWORK = {network!r} does not train on a hybrid grid: its "
-                         f"ConvTranspose2d and /2 bilinear resize take no width halo")
     rows = mesh.data if hybrid else mesh
     if network == "RMNet":
         apply = with_remat(apply, cfg.TRAIN.REMAT if remat is None else remat)
@@ -203,10 +200,18 @@ def make_loss_fn(cfg, apply: RMNetApply, tflownet: TinyFlowNet,
         return (loss, bn) if apply.train_bn else loss
 
     def tfn_loss(batch):
-        est, flows = tflownet.video_forward(batch["frames"]), batch["flows"]
-        if mesh is not None:
-            est = all_gather_rows(est, mesh, "loss gather")
-            flows = all_gather_rows(flows, mesh, "loss gather")
+        frames, flows = batch["frames"], batch["flows"]
+        if hybrid:  # the rank's columns of the flows -> the whole width
+            space = width_mesh(mesh.space, *frames.shape[2:4], TFN_CELL)
+            with space.installed(tflownet):
+                est = tflownet.video_forward(frames)
+            est = space.gather_unpadded(est.movedim(-1, 2), "loss gather",
+                                        summed=False).movedim(2, -1)
+        else:
+            est = tflownet.video_forward(frames)
+        if rows is not None:
+            est = all_gather_rows(est, rows, "loss gather")
+            flows = all_gather_rows(flows, rows, "loss gather")
         return l1_loss(est, flows)
 
     return rmnet_loss if network == "RMNet" else tfn_loss
@@ -294,8 +299,8 @@ class Trainer:
         ``mesh``); there is no fallback to the CPU. At TRAIN.DATA_PARALLEL =
         n > 1 ``mesh`` is the rank's (:func:`train_net` makes it), and every
         rank starts from rank 0's parameters and running statistics. A
-        HybridMesh trains RMNet on its grid, whose "data" ranks are
-        TRAIN.DATA_PARALLEL."""
+        HybridMesh trains either network on its grid, whose "data" ranks
+        are TRAIN.DATA_PARALLEL."""
         check_train_flags(cfg)
         n = cfg.TRAIN.DATA_PARALLEL
         hybrid = isinstance(mesh, HybridMesh)

@@ -61,7 +61,7 @@ from rmnet_tpu_torch.ops.flash_attention import flash_memory_read
 from rmnet_tpu_torch.parallel import (DataMesh, HybridMesh, launch, make_hybrid_mesh,
                                       rank_rows)
 from rmnet_tpu_torch.parallel.space import WidthMesh
-from rmnet_tpu_torch.train import Trainer, make_loss_fn
+from rmnet_tpu_torch.train import Trainer
 
 from tests.test_rmnet_forward import LOOSE, build_clip
 from tests.test_torch_dp import _batch as t3_batch
@@ -409,25 +409,32 @@ def _fake_grid(n_data=2, n_space=2):
 
 
 def test_tinyflownet_on_a_grid_raises():
-    """TinyFlowNet's ConvTranspose2d and /2 resize take no width halo: its
-    loss refuses a hybrid grid."""
-    cfg = train_cfg(2, NETWORK="TinyFlowNet")
-    trainer = Trainer(train_cfg(1), *seeded_states(0), device="cpu")
-    with pytest.raises(ValueError, match="TinyFlowNet"):
-        make_loss_fn(cfg, trainer.apply, trainer.tflownet, mesh=_fake_grid())
+    """TinyFlowNet trains on a grid of its own /64 columns
+    (tests/test_torch_hybrid_tfn.py); what still raises, before any
+    collective, is a width mesh of another grid or frame size installed in
+    it: RMNet's /16 mesh of the same frames."""
+    trainer = Trainer(train_cfg(1, NETWORK="TinyFlowNet"), *seeded_states(0), device="cpu")
+    grid = _fake_grid()
+    width = WidthMesh.build(grid.space, H, W)
+    frames = trainer.to_device(_parallel_batch())["frames"]
+    with width.installed(trainer.tflownet), pytest.raises(ValueError, match="/16 grid"):
+        trainer.tflownet.video_forward(frames)
+    assert trainer.tflownet.space is None
+    assert not any(m.counts for m in grid.meshes().values())
 
 
 def test_training_where_a_space_rank_holds_no_column_raises():
-    """48x64 has 4 columns of the /16 grid: 8 space ranks leave 4 without
-    one, whose convolutions would touch no weight; the loss raises before
-    any collective."""
-    grid = _fake_grid(1, 8)
-    trainer = Trainer(train_cfg(1), *seeded_states(0), device="cpu")
-    loss_fn = make_loss_fn(trainer.cfg, trainer.apply, trainer.tflownet, mesh=grid)
-    batch = trainer.to_device(_parallel_batch())
-    with pytest.raises(ValueError, match="without columns"):
-        loss_fn(batch)
-    assert not any(m.counts for m in grid.meshes().values())
+    """A space rank without a column trains (tests/test_torch_hybrid_tfn.py);
+    what still raises there, before any collective, is a halo wider than
+    the narrowest shard: 48x64 on 8 space ranks leaves shards of one /16
+    column, and a 5-wide kernel at /16 would read two columns of each
+    neighbour."""
+    space = WidthMesh.build(DataMesh(5, 8, torch.device("cpu"), "gloo"), H, W)
+    assert space.grid[5] == (4, 4)
+    x = torch.zeros(1, 4, H // 16, 0)
+    with pytest.raises(ValueError, match=r"a halo of \(2, 2\) columns on shards as narrow"):
+        space.conv2d(x, torch.zeros(4, 4, 5, 5), None, 1, 2)
+    assert not space.mesh.counts
 
 
 def test_narrow_width_on_8_ranks(hybrid):

@@ -18,7 +18,8 @@ merge kernels, against the plain read and the plain split and merge): f32 at
 and +inf on the same rows. Backward (``BWD_CASES``, ``compare_bwd``): dQ, dK
 and dV each within 1e-4 (f32) or 1e-2 (bf16) of the plain gradient's largest
 magnitude, the query shards of phases spatial and hybrid among them. Both
-count one launch per call. Two forward calls (``check_fwd_deterministic``,
+count one launch per call, none at the query of no row of a rank without
+columns (an empty output, lse and dQ, zero dK and dV). Two forward calls (``check_fwd_deterministic``,
 bf16 at the engine's shape, the training read in both types and the width
 meshes' query shards in both types) and two backward calls
 (``check_bwd_deterministic``: the f32 training read and the query shards in
