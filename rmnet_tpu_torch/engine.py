@@ -28,6 +28,7 @@ from rmnet_tpu_torch.models.tiny_flownet import TinyFlowNet
 from rmnet_tpu_torch.models.weights import build_models  # noqa: F401  (re-export)
 from rmnet_tpu_torch.ops.flash_attention import LIBRARY, flash_memory_read
 from rmnet_tpu_torch.ops.resize import resize_bilinear, resize_nearest, scale_hw
+from rmnet_tpu_torch.utils.profiling import new_request, span
 
 
 def _on_device(module_cls, state: Mapping[str, torch.Tensor], device, dtype):
@@ -85,7 +86,8 @@ class _ChunkProgram:
         """The host buffers to fill with the next chunk's inputs, once the
         card has finished copying the last chunk's out of them."""
         if self.graph is not None:
-            self.uploaded.synchronize()
+            with span("engine.wait"):
+                self.uploaded.synchronize()
         return {k: v.numpy() for k, v in self.staged.items()}
 
     def upload(self, gt_steps=None) -> None:
@@ -295,11 +297,97 @@ class InferenceEngine:
         with ``accumulate_into=(acc, flip)``, adds the probabilities of
         frames 1.. to the device tensor acc (rows, K, H', W') instead,
         un-flipped and resized to (H', W').
+
+        With the profiling recorder on, one request a call: ``engine.video``
+        around it, holding ``engine.prepare``, then per chunk
+        ``engine.stage`` (filling the pinned buffers), ``engine.upload``,
+        ``engine.replay``, with ``engine.wait`` (for the staging buffers and
+        the downloads) and ``engine.assemble`` (the output and the copies
+        out of pinned memory) between them.
         """
-        dev = self.device
         raw = n_slots is not None
         N, T, H, W = frames.shape[:4]
         K = n_slots if raw else masks.shape[2]
+        with span("engine.video", new_request()):
+            with span("engine.prepare"):
+                plan, programs, any_new, commit, valid = self._prepare(
+                    frames, masks, n_objects, flows, return_probs, lengths, raw, K)
+
+            with span("engine.assemble"):
+                if accumulate_into is not None:
+                    acc, flip = accumulate_into
+                elif return_probs:
+                    out = np.zeros((T, N, K, H, W), np.float32)
+                    out[0] = masks[:, 0]
+                elif raw:
+                    out = np.zeros((T, N, H, W), np.uint8)
+                    out[0] = np.where(masks[:, 0] == 255, 0, masks[:, 0])
+                else:
+                    out = np.zeros((T, N, H, W), np.uint8)
+                    out[0] = np.argmax(masks[:, 0], axis=1)
+
+            def materialize(pending):
+                buf, done, p_t, p_end = pending
+                if done is not None:
+                    with span("engine.wait"):
+                        done.synchronize()
+                with span("engine.assemble"):
+                    out[p_t:p_end] = buf.numpy()[: p_end - p_t]
+
+            pending = None
+            t = 1
+            for size in plan:
+                end = min(t + size, T)
+                prog = programs[size]
+                x = prog.staging()
+                with span("engine.stage"):
+                    for s in range(size):  # padded steps repeat the last frame
+                        x["frames"][s] = frames[:, min(t + s, T - 1)]
+                        if flows is not None:
+                            x["flows"][s] = flows[:, min(t + s, T - 1)]
+                    x["any_new"][:] = any_new[t:t + size]
+                    x["commit"][:] = commit[t - 1:t - 1 + size]
+                    x["valid"][:] = valid[t:t + size]
+                    if raw:
+                        gt_steps = None
+                        for s in range(size):
+                            x["gt"][s] = masks[:, min(t + s, T - 1)]
+                    else:
+                        # the masks are read only where any_new: refresh those steps
+                        gt_steps = np.flatnonzero(any_new[t:t + size].any(axis=1))
+                        for s in gt_steps:
+                            x["gt"][s] = masks[:, t + s]
+                with span("engine.upload"):
+                    prog.upload(gt_steps)
+                with span("engine.replay"):
+                    res = prog.run()
+                self.replays += 1
+                if accumulate_into is not None:
+                    with span("engine.assemble"):
+                        est = res[:, 0]  # (size, K, h, w) float32
+                        if flip:
+                            est = est.flip(-1)
+                        if est.shape[-2:] != acc.shape[-2:]:
+                            est = resize_bilinear(est, acc.shape[-2:], spatial_axes=(-2, -1))
+                        acc[t:t + size] += est
+                else:
+                    # the previous chunk comes down while this one runs
+                    if pending is not None:
+                        materialize(pending)
+                    with span("engine.assemble"):
+                        pending = (*prog.download(res), t, end)
+                t = end
+            if pending is not None:
+                materialize(pending)
+        return None if accumulate_into is not None else np.moveaxis(out, 0, 1)
+
+    def _prepare(self, frames, masks, n_objects, flows, return_probs: bool, lengths,
+                 raw: bool, K: int):
+        """A video batch's chunk plan, its chunk programs (captured at a
+        geometry's first use) and its time-major flags (any_new, commit,
+        valid); the geometry's state reset to frame 0."""
+        dev = self.device
+        N, T, H, W = frames.shape[:4]
         lengths = np.full((N,), T) if lengths is None else np.asarray(lengths)
         n_objects = np.asarray(n_objects)
         plan = self._chunk_plan(T - 1)
@@ -333,66 +421,7 @@ class InferenceEngine:
                     for C in dict.fromkeys(plan)}
         state.reset_(frame0, masks0)
         obj_valid_d.copy_(torch.from_numpy(obj_valid))
-
-        if accumulate_into is not None:
-            acc, flip = accumulate_into
-        elif return_probs:
-            out = np.zeros((T, N, K, H, W), np.float32)
-            out[0] = masks[:, 0]
-        elif raw:
-            out = np.zeros((T, N, H, W), np.uint8)
-            out[0] = np.where(masks[:, 0] == 255, 0, masks[:, 0])
-        else:
-            out = np.zeros((T, N, H, W), np.uint8)
-            out[0] = np.argmax(masks[:, 0], axis=1)
-
-        def materialize(pending):
-            buf, done, p_t, p_end = pending
-            if done is not None:
-                done.synchronize()
-            out[p_t:p_end] = buf.numpy()[: p_end - p_t]
-
-        pending = None
-        t = 1
-        for size in plan:
-            end = min(t + size, T)
-            prog = programs[size]
-            x = prog.staging()
-            for s in range(size):  # padded steps repeat the last frame
-                x["frames"][s] = frames[:, min(t + s, T - 1)]
-                if flows is not None:
-                    x["flows"][s] = flows[:, min(t + s, T - 1)]
-            x["any_new"][:] = any_new[t:t + size]
-            x["commit"][:] = commit[t - 1:t - 1 + size]
-            x["valid"][:] = valid[t:t + size]
-            if raw:
-                gt_steps = None
-                for s in range(size):
-                    x["gt"][s] = masks[:, min(t + s, T - 1)]
-            else:
-                # the masks are read only where any_new: refresh those steps
-                gt_steps = np.flatnonzero(any_new[t:t + size].any(axis=1))
-                for s in gt_steps:
-                    x["gt"][s] = masks[:, t + s]
-            prog.upload(gt_steps)
-            res = prog.run()
-            self.replays += 1
-            if accumulate_into is not None:
-                est = res[:, 0]  # (size, K, h, w) float32
-                if flip:
-                    est = est.flip(-1)
-                if est.shape[-2:] != acc.shape[-2:]:
-                    est = resize_bilinear(est, acc.shape[-2:], spatial_axes=(-2, -1))
-                acc[t:t + size] += est
-            else:
-                # the previous chunk comes down while this one runs
-                if pending is not None:
-                    materialize(pending)
-                pending = (*prog.download(res), t, end)
-            t = end
-        if pending is not None:
-            materialize(pending)
-        return None if accumulate_into is not None else np.moveaxis(out, 0, 1)
+        return plan, programs, any_new, commit, valid
 
     # ------------------------------------------------------------- serving
     def run_video_labels(self, frames, masks, n_objects, flows=None) -> np.ndarray:

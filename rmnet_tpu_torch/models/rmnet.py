@@ -76,6 +76,7 @@ from rmnet_tpu_torch.ops.pad import divide_pads, pad_divide_by, unpad
 from rmnet_tpu_torch.ops.warp import backward_warp
 from rmnet_tpu_torch.parallel.mesh import DataMesh
 from rmnet_tpu_torch.parallel.space import WidthMesh
+from rmnet_tpu_torch.utils.profiling import phase
 
 NEW_OBJECT_SCALE = 32.0605
 NEW_OBJECT_BIAS = -16.1181
@@ -468,14 +469,15 @@ class RMNetApply:
         return self._att(expt, out_hw, offset)[0]
 
     def segment(self, frame, att_small, mem_keys, mem_values, slot_valid,
-                obj_valid, mem_bboxes=None, bn=None):
+                obj_valid, mem_bboxes=None, bn=None, phases=False):
         """One segmentation pass -> ((B, K, H, W) float32 logits, bn)
         (reference models/rmnet.py:304-383).
 
         frame (B, 3, H, W); att_small (B, K, h, w); mem_keys/values
         (B, K, S, h, w, C); slot_valid (B, S) bool, per stream; mem_bboxes
         (B, K, S, 4), needed by the flash read; ``bn``: running statistics,
-        the query encoder's updated (None: frozen).
+        the query encoder's updated (None: frozen). ``phases``: stamp the
+        device phases ``query`` (up to the read) and ``read``.
         """
         B, K, S = mem_keys.shape[:3]
         frame_p, pads = self._pad(frame)
@@ -495,11 +497,15 @@ class RMNetApply:
         # bank holds the whole /16 width and the query the rank's columns
         mk = mem_keys[:, 1:].reshape(N, S, *mem_keys.shape[3:])
         mv = mem_values[:, 1:].reshape(N, S, *mem_values.shape[3:])
+        if phases:
+            phase("query", frame.device)
         if self.use_flash_attention:
             boxes = mem_bboxes[:, 1:].reshape(N, S, 4)
             mem, _ = flash_memory_read(mk, mv, q_key.contiguous(), valid, boxes)
         else:
             mem, _ = _dense_read(mk, mv, q_key, valid)
+        if phases:
+            phase("read", frame.device)
         m4 = torch.cat([mem.to(q_val.dtype).permute(0, 3, 1, 2), q_val], dim=1)
 
         # skip branches once per frame, shared across objects
@@ -525,7 +531,8 @@ class RMNetApply:
         commit (B,) bool commits frame t-1 to the stream's ring slot at
         ``cursor % capacity``. Returns (new_state, est_mask (B, K, H, W)).
         The bank tensors of ``state`` are updated in place; nothing is read
-        back to the host.
+        back to the host. Stamps the device phases ``memorize`` (with the
+        ring write), ``query`` and ``read`` of :meth:`chunk_forward`.
         """
         B = frame.shape[0]
         S = state.capacity
@@ -543,11 +550,12 @@ class RMNetApply:
             keep = commit.view((B,) + (1,) * (item.ndim - 1))
             buf[rows, :, pos] = torch.where(keep, item, buf[rows, :, pos])
             buf[:, :, S] = item
+        phase("memorize", frame.device)
 
         slot_valid = _slot_valid(S, state.cursor, commit)
         est_mask, exist, _ = self._segment_frame(
             state.prev_mask, state.exist, frame, flow, gt_mask, any_new, obj_valid,
-            state.keys, state.values, state.bboxes, slot_valid)
+            state.keys, state.values, state.bboxes, slot_valid, phases=True)
         new_state = dataclasses.replace(
             state,
             cursor=state.cursor + commit.to(torch.int32),
@@ -570,11 +578,19 @@ class RMNetApply:
         stream's last frame) runs, but leaves that stream's state as it was.
         Every tensor of ``state`` is updated in place, so that the state can
         be a CUDA graph's static buffers.
+
+        With the profiling recorder on, each step stamps contiguous device
+        phases (utils/profiling.py ``phase``): ``flow`` | ``memorize`` (with
+        the ring write) | ``query`` (query trunk, key/value heads, regional
+        attention map) | ``read`` | ``decode`` (skips, decoder, softmax,
+        aggregation, unpad, the state's carry), which add up to the step.
         """
         ests = []
+        phase(None, frames.device)
         for c in range(frames.shape[0]):
             frame, valid = frames[c], step_valid[c]
             flow = flow_fn(frame, state.prev_frame) if flows is None else flows[c]
+            phase("flow", frame.device)
             # a padded step commits nothing, so the bank and cursor stay put
             new, est = self.step(state, frame, flow, gt_masks[c], any_new[c],
                                  commit[c] & valid, obj_valid)
@@ -583,14 +599,16 @@ class RMNetApply:
             state.prev_mask.copy_(torch.where(v, new.prev_mask, state.prev_mask))
             state.prev_frame.copy_(torch.where(v, new.prev_frame, state.prev_frame))
             state.exist.copy_(torch.where(valid[:, None], new.exist, state.exist))
+            phase("decode", frame.device)
             ests.append(est)
         return torch.stack(ests)
 
     def _segment_frame(self, prev_mask, exist, frame, flow, gt_mask, any_new,
-                       obj_valid, keys, values, bboxes, slot_valid, bn=None):
+                       obj_valid, keys, values, bboxes, slot_valid, bn=None, phases=False):
         """Segment ``frame`` against the bank, inject new objects, suppress
         unrevealed ones -> (est_mask (B, K, H, W), exist, bn). Under a width
-        mesh ``flow``, ``gt_mask`` and the estimate hold the rank's columns."""
+        mesh ``flow``, ``gt_mask`` and the estimate hold the rank's columns.
+        ``phases``: :meth:`segment`'s."""
         H, W = frame.shape[-2:]
         lw, uw, lh, uh = divide_pads(H, W, 16)
         out_hw = ((H + lh + uh) // 16, (W + lw + uw) // 16)
@@ -599,7 +617,7 @@ class RMNetApply:
             out_hw = (out_hw[0], hi - lo)
         att_small = self.get_att_small(prev_mask, flow, out_hw, (lh, lw))
         logit, bn = self.segment(frame, att_small, keys, values, slot_valid, obj_valid,
-                                 mem_bboxes=bboxes, bn=bn)
+                                 mem_bboxes=bboxes, bn=bn, phases=phases)
 
         # new-object injection (models/rmnet.py:436-442), per stream
         newly = _present_objects(gt_mask, self.space) & ~exist & any_new[:, None]

@@ -407,12 +407,13 @@ class _Library:
         fn = getattr(lib, self.name)
         fn.argtypes = self.argtypes
         fn.restype = ctypes.c_int
-        tile, smem = getattr(lib, f"{self.name}_tile"), getattr(lib, f"{self.name}_smem_bytes")
-        for const in (tile, smem):
-            const.argtypes = []
-            const.restype = ctypes.c_int
-        if tile() != KERNEL_TILE:
-            raise RuntimeError(f"{self.name}: kernel tile size disagrees with KERNEL_TILE")
+        if hasattr(lib, f"{self.name}_tile"):  # a read kernel: its tile is KERNEL_TILE
+            tile, smem = getattr(lib, f"{self.name}_tile"), getattr(lib, f"{self.name}_smem_bytes")
+            for const in (tile, smem):
+                const.argtypes = []
+                const.restype = ctypes.c_int
+            if tile() != KERNEL_TILE:
+                raise RuntimeError(f"{self.name}: kernel tile size disagrees with KERNEL_TILE")
         if hasattr(lib, f"{self.name}_init"):
             # one-time kernel attributes, so that a CUDA graph capture of a
             # launch records the launch only

@@ -95,6 +95,7 @@ from rmnet_tpu_torch.utils.average_meter import AverageMeter
 from rmnet_tpu_torch.utils.checkpoint import (load_backbone_weights, load_weights_auto,
                                               save_checkpoint)
 from rmnet_tpu_torch.utils.metrics import Metrics
+from rmnet_tpu_torch.utils.profiling import new_request, phase, span
 from rmnet_tpu_torch.utils.signals import stop_on_signals
 from rmnet_tpu_torch.utils.summary import SummaryWriter
 
@@ -238,14 +239,22 @@ def make_train_step(cfg, apply: RMNetApply, tflownet: TinyFlowNet,
     rows together, and the gradients are summed over the ranks once, after
     the last micro-batch, before the division by n. A HybridMesh's batch is
     the rank's rows from ``hybrid_shard_batch``, and the gradients are
-    summed over every rank of the grid."""
+    summed over every rank of the grid.
+
+    With the profiling recorder on, host spans ``train.forward``,
+    ``train.backward`` (once a micro-batch), ``train.loss_read`` (the
+    ``.item()`` wait) and ``train.optimizer``, of request ``req`` (default a
+    new one), and device phases ``train.forward`` and ``train.backward`` at
+    the same boundaries."""
     loss_fn = make_loss_fn(cfg, apply, tflownet, mesh=mesh)
     grad_mesh = mesh.world if isinstance(mesh, HybridMesh) else mesh
     accum = int(cfg.TRAIN.GRAD_ACCUM_STEPS)
     params = [p for group in optimizer.param_groups for p in group["params"]]
     train_bn = cfg.TRAIN.NETWORK == "RMNet" and apply.train_bn
 
-    def step(batch, lr: float) -> float:
+    def step(batch, lr: float, req: Optional[int] = None) -> float:
+        req = new_request() if req is None else req
+        dev = batch["frames"].device
         optimizer.zero_grad(set_to_none=True)
         B = batch["frames"].shape[0]
         if B % accum:
@@ -254,13 +263,18 @@ def make_train_step(cfg, apply: RMNetApply, tflownet: TinyFlowNet,
         losses = []
         bn = apply.running_stats() if train_bn else None
         for i in range(accum):
-            micro = slice(i * B // accum, (i + 1) * B // accum)
-            micro_batch = {k: v[micro] for k, v in batch.items()}
-            if train_bn:
-                loss, bn = loss_fn(micro_batch, bn)
-            else:
-                loss = loss_fn(micro_batch)
-            loss.backward()
+            with span("train.forward", req):
+                phase(None, dev)
+                micro = slice(i * B // accum, (i + 1) * B // accum)
+                micro_batch = {k: v[micro] for k, v in batch.items()}
+                if train_bn:
+                    loss, bn = loss_fn(micro_batch, bn)
+                else:
+                    loss = loss_fn(micro_batch)
+                phase("train.forward", dev)
+            with span("train.backward", req):
+                loss.backward()
+                phase("train.backward", dev)
             losses.append(loss.detach())
         if grad_mesh is not None:
             all_reduce_grads(params, grad_mesh)
@@ -268,13 +282,15 @@ def make_train_step(cfg, apply: RMNetApply, tflownet: TinyFlowNet,
             for p in params:
                 if p.grad is not None:
                     p.grad.div_(accum)
-        value = torch.stack(losses).mean().item()
-        if math.isfinite(value):
-            for group in optimizer.param_groups:
-                group["lr"] = lr
-            optimizer.step()
-            if train_bn:
-                apply.load_running_stats(bn)
+        with span("train.loss_read", req):
+            value = torch.stack(losses).mean().item()
+        with span("train.optimizer", req):
+            if math.isfinite(value):
+                for group in optimizer.param_groups:
+                    group["lr"] = lr
+                optimizer.step()
+                if train_bn:
+                    apply.load_running_stats(bn)
         return value
 
     return step
@@ -348,9 +364,14 @@ class Trainer:
 
     def train_step(self, batch: Mapping, lr: Optional[float] = None) -> float:
         """One step on ``batch`` (with a mesh: the global batch) at ``lr``
-        (default TRAIN.LEARNING_RATE) -> the loss."""
+        (default TRAIN.LEARNING_RATE) -> the loss. With the profiling
+        recorder on, one request: ``train.upload`` and the step's spans
+        (:func:`make_train_step`)."""
         lr = self.cfg.TRAIN.LEARNING_RATE if lr is None else lr
-        return self._step(self.to_device(batch), lr)
+        req = new_request()
+        with span("train.upload", req):
+            batch = self.to_device(batch)
+        return self._step(batch, lr, req)
 
     def state_dicts(self) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
         return self.rmnet.state_dict(), self.tflownet.state_dict()

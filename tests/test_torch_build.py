@@ -1,8 +1,9 @@
 """What the kernels' builds read and what their entry points take, on the CPU
-(no nvcc needed): the build tag of each kernel library covers its source,
-every header beside it and nothing else; every quoted include of a kernel
-source names a header that the tag covers; the kernel entry points refuse
-CPU tensors; the backward probe's patches still apply to the sources."""
+(no nvcc needed): the build tag of each kernel library (the reads', the
+phase stamp's) covers its source, every header beside it and nothing else;
+every quoted include of a kernel source names a header that the tag covers;
+the kernel entry points refuse CPU tensors; the backward probe's patches
+still apply to the sources."""
 
 import re
 import shutil
@@ -21,8 +22,9 @@ from rmnet_tpu_torch.ops.flash_attention import (
     flash_read_fwd,
     tile_metadata,
 )
+from rmnet_tpu_torch.utils.profiling import STAMP_LIBRARY
 
-LIBRARIES = {lib.name: lib for lib in (LIBRARY, BWD_LIBRARY)}
+LIBRARIES = {lib.name: lib for lib in (LIBRARY, BWD_LIBRARY, STAMP_LIBRARY)}
 
 
 def _copy(tmp_path, name):

@@ -29,7 +29,7 @@ from rmnet_tpu_torch.data.io import IO, read_flo, write_flo
 from rmnet_tpu_torch.data.synthetic import make_synthetic_davis
 from rmnet_tpu_torch.utils import metrics
 from rmnet_tpu_torch.utils.average_meter import AverageMeter
-from rmnet_tpu_torch.utils.profiling import Stopwatch, trace_if
+from rmnet_tpu_torch.utils.profiling import trace_if
 from rmnet_tpu_torch.utils.seg_viz import PALETTE, get_segmentation
 from rmnet_tpu_torch.utils.summary import SummaryWriter
 
@@ -361,11 +361,3 @@ def test_trace_if_writes_a_chrome_trace(tmp_path, monkeypatch):
         torch.ones(8).add_(1)
     trace = json.loads((tmp_path / "trace" / "rmnet_trace.json").read_text())
     assert trace["traceEvents"]
-
-
-def test_stopwatch():
-    sw = Stopwatch()
-    for _ in range(2):
-        with sw.scope("a"):
-            pass
-    assert sw.counts["a"] == 2 and "a: total" in sw.report()

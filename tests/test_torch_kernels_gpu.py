@@ -23,9 +23,12 @@ columns (an empty output, lse and dQ, zero dK and dV). Two forward calls (``chec
 bf16 at the engine's shape, the training read in both types and the width
 meshes' query shards in both types) and two backward calls
 (``check_bwd_deterministic``: the f32 training read and the query shards in
-both types) give bit-identical results.
+both types) give bit-identical results. The phase stamps (utils/profiling.py)
+captured into the engine's chunk graphs count at every replay, add up to the
+replays' CUDA-event time within 3%, and change no probability.
 """
 
+import numpy as np
 import pytest
 import torch
 
@@ -112,3 +115,43 @@ def test_update_weights_reaches_the_captured_graphs():
     eng = graph_engine(_models(), torch.float32)
     clip = make_clip(GRAPH_T, HEIGHT, WIDTH, N_OBJECTS)
     check_update_weights(eng, clip, eng.run_video(*clip))
+
+
+@pytest.mark.gpu
+def test_phase_stamps_in_the_chunk_graphs():
+    """An engine built with the recorder on captures the phase stamps into
+    its chunk graphs: they count at every replay, their phases add up to
+    within 3% of the replays' CUDA-event time, and its probabilities equal
+    an engine's built with the recorder off."""
+    from rmnet_tpu_torch.utils.profiling import RECORDER
+
+    _cuda()
+    models = _models()
+    clip = make_clip(GRAPH_T, HEIGHT, WIDTH, N_OBJECTS)
+    want = graph_engine(models, torch.bfloat16).run_video(*clip)
+    RECORDER.clear()
+    RECORDER.enable()
+    try:
+        eng = graph_engine(models, torch.bfloat16)
+        got = eng.run_video(*clip)
+        (_, _, programs), = eng._geometries.values()
+        C = eng.chunk
+        prog = next(p for (size, *_), p in programs.items() if size == C)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        replays = 6
+        torch.cuda.synchronize()
+        RECORDER.clear()
+        start.record()
+        for _ in range(replays):
+            prog.graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        phases = RECORDER.phase_totals()
+    finally:
+        RECORDER.disable()
+        RECORDER.clear()
+    assert np.array_equal(got, want)
+    assert sorted(phases) == sorted(("flow", "memorize", "query", "read", "decode"))
+    assert all(n == replays * C for _, n in phases.values()), phases
+    stamped, timed = sum(s for s, _ in phases.values()), start.elapsed_time(end) * 1e-3
+    assert abs(stamped - timed) <= 0.03 * timed, (stamped, timed, phases)
