@@ -14,8 +14,8 @@ Phases, in order (each raises on failure; nothing is caught):
   device  require CUDA, print the card's name and power limit;
   build   build rmnet_tpu_torch/csrc/flash_read_{fwd,bwd}.cu with nvcc for
           sm_90a (one nvcc each, started together); registers, spills and
-          shared memory of each; the tensor-core (HMMA) instructions of each
-          kernel in the built SASS (cuobjdump; fails on 0 in a forward main
+          shared memory of each; the tensor-core (HMMA, HGMMA) instructions of
+          each kernel in the built SASS (cuobjdump; fails on 0 in a forward main
           kernel or a backward kernel);
   kernel  hold the flash-read forward (main and merge kernels) against its
           plain PyTorch version and against the plain split and merge at the
@@ -313,7 +313,8 @@ def phase_build() -> dict:
     hmma = {lib.name: sass_mma_counts(lib) for lib in libs}
     for name, counts in hmma.items():
         for kernel, count in counts.items():
-            log(f"build: {name} {kernel}: {count} HMMA instructions in the SASS")
+            log(f"build: {name} {kernel}: {count} tensor-core instructions (HMMA, HGMMA) "
+                f"in the SASS")
     # every kernel but the forward's merge (a weighted sum of the splits) is a product
     fwd, bwd = hmma[LIBRARY.name], hmma[BWD_LIBRARY.name]
     products = [fwd.get(k, 0) for k in FWD_MAIN_KERNELS] + list(bwd.values())
@@ -337,8 +338,8 @@ def _kernel_name(mangled: str) -> str:
 
 
 def sass_mma_counts(lib) -> dict:
-    """HMMA (tensor-core) instructions per kernel in the SASS of ``lib``'s
-    build, read with cuobjdump."""
+    """Tensor-core instructions (HMMA: mma.sync; HGMMA: wgmma) per kernel in
+    the SASS of ``lib``'s build, read with cuobjdump."""
     cuobjdump = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "cuobjdump"
     sass = subprocess.run([str(cuobjdump), "-sass", str(lib.path)], capture_output=True,
                           text=True, check=True).stdout
@@ -347,7 +348,7 @@ def sass_mma_counts(lib) -> dict:
         if "Function :" in line:
             kernel = _kernel_name(line.split("Function :")[1].strip())
             counts[kernel] = 0
-        elif kernel is not None and "HMMA" in line:
+        elif kernel is not None and ("HMMA" in line or "HGMMA" in line):
             counts[kernel] += 1
     return counts
 
@@ -364,12 +365,15 @@ F32_TOL, BF16_REL_TOL = 2e-4, 1e-2
 
 
 def bank_case(N, S, h, w, dtype, seed, invalid=(), all_invalid_row=None, loose=64,
-              q_cols=None):
+              q_cols=None, row_invalid=None, ring=None):
     """Bank-like read inputs on the card at /16 grid (h, w): boxes made as
     memorize makes them (dilated box of a thresholded mask, rasterized on
     the /16 grid), k/v zero outside the boxes, some slots invalid; with
     ``q_cols`` (start, end) the query holds those columns only, as a rank of
-    a width mesh reads its shard against the whole bank."""
+    a width mesh reads its shard against the whole bank. ``row_invalid``
+    (row, slots): that row's further invalid slots. ``ring`` (slots,
+    first): k/v are a view of slots first .. first + S - 1 of a zeroed bank
+    of that many slots, as the engine reads its ring."""
     from rmnet_tpu_torch.ops.att_map import _bboxes, _raster_small
 
     g = torch.Generator().manual_seed(seed)
@@ -394,11 +398,20 @@ def bank_case(N, S, h, w, dtype, seed, invalid=(), all_invalid_row=None, loose=6
         valid[:, s] = False
     if all_invalid_row is not None:
         valid[all_invalid_row] = False
+    if row_invalid is not None:
+        valid[row_invalid[0], list(row_invalid[1])] = False
     if q_cols is not None:
         qk = qk[:, :, q_cols[0]:q_cols[1]].contiguous()
+    m_key, m_val = (mk * cell).to("cuda", dtype), (mv * cell).to("cuda", dtype)
+    if ring is not None:
+        slots, first = ring
+        bank_k = torch.zeros((N, slots) + m_key.shape[2:], dtype=dtype, device="cuda")
+        bank_v = torch.zeros((N, slots) + m_val.shape[2:], dtype=dtype, device="cuda")
+        bank_k[:, first:first + S] = m_key
+        bank_v[:, first:first + S] = m_val
+        m_key, m_val = bank_k[:, first:first + S], bank_v[:, first:first + S]
     return dict(
-        m_key=(mk * cell).to("cuda", dtype), m_val=(mv * cell).to("cuda", dtype),
-        q_key=qk.to("cuda", dtype), slot_valid=valid.to("cuda"),
+        m_key=m_key, m_val=m_val, q_key=qk.to("cuda", dtype), slot_valid=valid.to("cuda"),
         bboxes=boxes[:, 1].reshape(N, S, 4).to("cuda"),
     )
 
@@ -454,10 +467,21 @@ KERNEL_CASES = {
     # gives an empty output and lse, an empty dQ and zero dK/dV
     "hybrid_N6_S3_empty_f32": (6, 3, 30, 30, torch.float32, 24, (1,), None, 64, (0, 0)),
     "hybrid_N6_S3_empty_bf16": (6, 3, 30, 30, torch.bfloat16, 25, (1,), None, 64, (0, 0)),
+    # the read of the benchmark's long-video cell: 5 objects, capacity 64
+    # plus the ephemeral slot, 21 slots committed; the fifth object, which
+    # joined later, 11 of them (1620 positions a slot: slot boundaries fall
+    # inside tiles)
+    "obj5_N5_S65_bf16": (5, 65, 30, 54, torch.bfloat16, 26, range(21, 64), None, 64, None,
+                         (4, range(11, 21))),
+    # a view of 5 slots of an 8-slot ring, 63 positions a slot: every tile
+    # straddles two slots of the strided bank
+    "ring_7x9_S5_bf16": (3, 5, 7, 9, torch.bfloat16, 27, (4,), None, 8, None, None, (8, 2)),
+    "S12_bf16_row_all_invalid": (2, 12, 30, 54, torch.bfloat16, 28, (), 1),
 }
 # inference-only reads that the backward never takes (its plain version
-# would hold tens of GB at 10 or 16 rows of S = 33)
-FWD_ONLY_CASES = ("streams_N16_S33_bf16", "streams_N16_S33_f32", "eval_N10_S33_f32")
+# would hold tens of GB at 10 or 16 rows of S = 33 and at 5 rows of S = 65)
+FWD_ONLY_CASES = ("streams_N16_S33_bf16", "streams_N16_S33_f32", "eval_N10_S33_f32",
+                  "obj5_N5_S65_bf16")
 
 
 def read_args(c) -> tuple:
@@ -551,10 +575,11 @@ def check_fwd_deterministic(name) -> None:
         raise AssertionError(f"forward kernel {name} is not deterministic: {same}")
 
 
-# the forward's determinism cases: the engine's type, the training reads' and
-# the width meshes' query shards
+# the forward's determinism cases: the engine's type (at its reads of 2, 5 and
+# 16 rows), the training reads' and the width meshes' query shards
 FWD_DETERMINISM_CASES = ("S33_bf16", "train_S3_f32", "train_S3_bf16", "spatial_S12_f32",
-                         "spatial_S12_bf16", "hybrid_N6_S3_f32", "hybrid_N6_S3_bf16")
+                         "spatial_S12_bf16", "hybrid_N6_S3_f32", "hybrid_N6_S3_bf16",
+                         "obj5_N5_S65_bf16", "streams_N16_S33_bf16")
 
 
 def phase_kernel() -> None:
@@ -949,9 +974,9 @@ EXECUTED_LIMIT = 1.3
 def read_fwd_executed_flops(args) -> float:
     """The operations the forward's main kernel executes on ``args`` (the
     forward's arguments) by the design's count, not measured: per (64-row
-    query block, listed active tile) 2*64*64*(2*Ck + Cv) in bf16 (each pair
-    of warps computes the same S for its half of the value columns) and
-    2*64*64*(Ck + Cv) in f32 (S once, through shared memory)."""
+    query block, listed active tile) 2*64*64*(2*Ck + Cv) in bf16 (each of the
+    two consumer warpgroups computes the same S for its half of the value
+    columns) and 2*64*64*(Ck + Cv) in f32 (S once, through shared memory)."""
     mk, mv, q, counts = args[0], args[1], args[2], args[5]
     Ck, Cv = mk.shape[-1], mv.shape[-1]
     s_passes = 2 if q.dtype == torch.bfloat16 else 1

@@ -26,7 +26,7 @@ import torch
 from rmnet_tpu_torch.models.rmnet import RMNet, RMNetApply, VOSState
 from rmnet_tpu_torch.models.tiny_flownet import TinyFlowNet
 from rmnet_tpu_torch.models.weights import build_models  # noqa: F401  (re-export)
-from rmnet_tpu_torch.ops.flash_attention import LIBRARY, flash_memory_read
+from rmnet_tpu_torch.ops.flash_attention import LIBRARY, count_replay, flash_memory_read
 from rmnet_tpu_torch.ops.resize import resize_bilinear, resize_nearest, scale_hw
 from rmnet_tpu_torch.utils.profiling import new_request, span
 
@@ -74,10 +74,12 @@ class _ChunkProgram:
             fn(inputs)
         torch.cuda.current_stream().wait_stream(side)
         self.graph = torch.cuda.CUDAGraph()
-        before = flash_memory_read.captured
+        before = dict(flash_memory_read.captured_kernels)
         with torch.cuda.graph(self.graph, pool=pool):
             self.out = fn(inputs)
-        self.flash_calls = flash_memory_read.captured - before
+        # forward read calls in the graph, by main kernel
+        self.flash_calls = {k: n - before[k]
+                            for k, n in flash_memory_read.captured_kernels.items()}
         self.out_host = [torch.empty(self.out.shape, dtype=self.out.dtype, pin_memory=True)
                          for _ in range(2)]
         self.turn = 0
@@ -108,7 +110,7 @@ class _ChunkProgram:
         if self.graph is None:
             return self.fn(self.inputs)
         self.graph.replay()
-        flash_memory_read.replayed += self.flash_calls
+        count_replay(self.flash_calls)
         return self.out
 
     def download(self, out: torch.Tensor):

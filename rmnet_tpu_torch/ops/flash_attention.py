@@ -18,15 +18,20 @@ build/kernels/ and bound with ctypes:
   ``_kernel`` of rmnet_tpu/ops/flash_attention.py:61 (pallas_call at :226).
   It is bound by operations: 2*N*Q*M_active*(Ck+Cv) FLOP against the
   active K/V bytes read once, an intensity of about Q (1620 at 480p) FLOP
-  per byte, well above the H100's ridge of about 295. Two kernels on the
-  tensor cores (bf16 mma.sync m16n8k16 with P rounded to bf16 as the TPU
-  kernel rounds it, csrc/mma_bf16.cuh; 3xTF32 for f32, csrc/mma_tf32.cuh):
-  the main kernel computes Q.K^T once per (64 query rows, active tile),
-  holds all Cv = 512 value columns of its rows and walks a fixed
-  contiguous share of the row's active tiles (a split, :func:`fwd_splits`
-  picks their count), writing a float32 partial (m, l, acc) per split; a
-  merge kernel combines the splits in a fixed order, adds the skipped
-  tiles' mass and writes ``out`` and ``lse``. Plain versions of the two:
+  per byte, well above the H100's ridge of about 295. Two kernels: the
+  main kernel, per (64 query rows, split), holds all Cv = 512 value
+  columns of its rows and walks a fixed contiguous share of the row's
+  active tiles (a split, :func:`fwd_splits` picks their count), writing a
+  float32 partial (m, l, acc) per split; a merge kernel combines the
+  splits in a fixed order, adds the skipped tiles' mass and writes ``out``
+  and ``lse``. In bf16 (the engine's type) the main kernel is
+  warp-specialised for Hopper (csrc/mma_bf16.cuh): a producer warp keeps
+  the tiles' K and V in flight into a two-stage ring with TMA and
+  mbarriers, through tensor maps that read the bank's slots as one
+  position axis (:func:`tma_bank_refusal`), and two consumer warpgroups
+  run wgmma, each S of the tile and P V over half the value columns, P
+  rounded to bf16 as the TPU kernel rounds it. In f32 (the training read)
+  it runs 3xTF32 mma.sync (csrc/mma_tf32.cuh). Plain versions of the two:
   :func:`flash_read_fwd_partials_reference`,
   :func:`flash_read_fwd_merge_reference`.
 * rmnet_tpu_torch/csrc/flash_read_bwd.cu replaces ``_bwd_kernel``
@@ -478,6 +483,20 @@ def _check_cuda_inputs(m_key, m_val, q_key, slot_valid, order, counts):
     _check_meta("q_key", q_key, q_key.dtype, (N, h, w_q, Ck), align=True)
 
 
+def tma_bank_refusal(shape, strides) -> Optional[str]:
+    """Why the bf16 kernel's tensor maps cannot address a bank of ``shape``
+    (N, S, h, w, C) with ``strides`` (elements), or None. A map reads the
+    positions of all S slots as one axis, so each slot must start where the
+    last one ends: a slot's stride is h*w times a position's (the ring views
+    the engine reads are sliced along the slots and keep that). The
+    remaining layout rules are :func:`_check_cuda_inputs`'s."""
+    _, S, h, w, _ = shape
+    if S > 1 and strides[1] != h * w * strides[3]:
+        return (f"the bf16 kernel reads the slots as one position axis: slot stride "
+                f"{strides[1]} must be h*w*{strides[3]} = {h * w * strides[3]}")
+    return None
+
+
 def _check_meta(name, t, dtype, shape, align=False):
     if (t.dtype != dtype or tuple(t.shape) != tuple(shape) or not t.is_contiguous()
             or (align and t.data_ptr() % 16)):
@@ -557,10 +576,9 @@ def flash_read_fwd(m_key, m_val, q_key, slot_valid, order, counts, z):
     :func:`tile_metadata` (at ``KERNEL_TILE``) -> (out (N, h, w_q, Cv), lse
     (N, Q) f32) for a query of Q = h*w_q rows against the bank's M = S*h*w
     positions (a query of no row launches nothing). Takes CUDA tensors only
-    and Cv = 512; adds one to ``flash_memory_read.launches`` per launch, or to
-    ``flash_memory_read.captured`` when the call is recorded into a CUDA
-    graph (whoever replays the graph counts its launches in
-    ``flash_memory_read.replayed``). Allocates the splits' float32
+    and Cv = 512, in bf16 a bank whose slots follow each other
+    (:func:`tma_bank_refusal`); counts each launch by main kernel
+    (:func:`count_fwd_launch`). Allocates the splits' float32
     scratch, N * splits * Qp * (Cv + 2) * 4 bytes (Qp = Q rounded up to 64,
     splits from :func:`fwd_splits`)."""
     _check_cuda_inputs(m_key, m_val, q_key, slot_valid, order, counts)
@@ -569,6 +587,11 @@ def flash_read_fwd(m_key, m_val, q_key, slot_valid, order, counts, z):
     Cv = m_val.shape[-1]
     if Cv != _FWD_CV:
         raise ValueError(f"the forward kernel takes Cv == {_FWD_CV}, got {Cv}")
+    if q_key.dtype == torch.bfloat16:
+        for name, t in (("m_key", m_key), ("m_val", m_val)):
+            refusal = tma_bank_refusal(t.shape, t.stride())
+            if refusal:
+                raise ValueError(f"{name}: {refusal}")
     lib = LIBRARY.load()
     Q = h * q_key.shape[2]
     dev = q_key.device
@@ -593,11 +616,35 @@ def flash_read_fwd(m_key, m_val, q_key, slot_valid, order, counts, z):
     )
     if err != 0:
         raise RuntimeError(f"flash_read_fwd launch failed: CUDA error {err}")
-    if torch.cuda.is_current_stream_capturing():
+    count_fwd_launch(FWD_KERNELS[q_key.dtype], torch.cuda.is_current_stream_capturing())
+    return out, lse
+
+
+# the forward's main kernel by input type (flash_read_fwd_<name>_kernel)
+FWD_KERNELS = {torch.bfloat16: "bf16", torch.float32: "f32"}
+
+
+def count_fwd_launch(kernel: str, capturing: bool) -> None:
+    """Count one forward call whose main kernel is ``kernel``: in
+    ``flash_memory_read.launches`` and ``.kernels[kernel]`` when launched,
+    in ``.captured`` and ``.captured_kernels[kernel]`` when recorded into a
+    CUDA graph (whoever replays the graph adds its calls to ``.replayed``
+    and ``.kernels``, :func:`count_replay`)."""
+    if capturing:
         flash_memory_read.captured += 1
+        flash_memory_read.captured_kernels[kernel] += 1
     else:
         flash_memory_read.launches += 1
-    return out, lse
+        flash_memory_read.kernels[kernel] += 1
+
+
+def count_replay(calls: dict) -> None:
+    """Count the forward calls ``calls`` (main kernel -> calls, the
+    differences of ``flash_memory_read.captured_kernels`` over a capture)
+    of one replayed CUDA graph."""
+    flash_memory_read.replayed += sum(calls.values())
+    for kernel, n in calls.items():
+        flash_memory_read.kernels[kernel] += n
 
 
 def flash_read_bwd(m_key, m_val, q_key, slot_valid, order, counts, d_out, lse, delta):
@@ -649,4 +696,8 @@ def flash_read_bwd(m_key, m_val, q_key, slot_valid, order, counts, d_out, lse, d
 flash_memory_read.launches = 0   # forward calls launched eagerly
 flash_memory_read.captured = 0   # forward calls recorded into CUDA graphs
 flash_memory_read.replayed = 0   # forward launches replayed from CUDA graphs
+# main-kernel launches by kernel, eager and replayed ("bf16": the wgmma kernel,
+# "f32": the 3xTF32 one), and the calls captured into graphs by kernel
+flash_memory_read.kernels = dict.fromkeys(FWD_KERNELS.values(), 0)
+flash_memory_read.captured_kernels = dict.fromkeys(FWD_KERNELS.values(), 0)
 flash_read_bwd.launches = 0

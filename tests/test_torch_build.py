@@ -2,8 +2,9 @@
 (no nvcc needed): the build tag of each kernel library (the reads', the
 phase stamp's) covers its source, every header beside it and nothing else;
 every quoted include of a kernel source names a header that the tag covers;
-the kernel entry points refuse CPU tensors; the backward probe's patches
-still apply to the sources."""
+the kernel entry points refuse CPU tensors; the bf16 forward's tensor maps
+refuse a bank whose slots do not follow each other; the backward probe's
+patches still apply to the sources."""
 
 import re
 import shutil
@@ -21,6 +22,7 @@ from rmnet_tpu_torch.ops.flash_attention import (
     flash_read_bwd,
     flash_read_fwd,
     tile_metadata,
+    tma_bank_refusal,
 )
 from rmnet_tpu_torch.utils.profiling import STAMP_LIBRARY
 
@@ -94,6 +96,34 @@ def test_kernel_entries_refuse_cpu_tensors_without_counting(entry):
     with pytest.raises(ValueError, match="CUDA tensors"):
         fn(*args)
     assert counted.launches == before
+
+
+def _ring_view():
+    """5 slots of an 8-slot ring, as the engine hands its bank to the read."""
+    return torch.zeros(2, 8, 7, 9, 128)[:, 2:7]
+
+
+def _padded_slots():
+    """Slots 8 positions apart beyond their 7 x 9: (h, w) stays one linear
+    axis, but the slots are not one axis with it."""
+    return torch.zeros(2, 5, 7 * 9 + 8, 128)[:, :, :63].view(2, 5, 7, 9, 128)
+
+
+@pytest.mark.parametrize("bank, refused", [
+    (lambda: torch.zeros(2, 5, 7, 9, 128), False),
+    (_ring_view, False),
+    (lambda: torch.zeros(3, 1, 7, 9, 512), False),       # one slot: nothing to follow
+    (lambda: _padded_slots()[:, :1], False),
+    (_padded_slots, True),
+    (lambda: torch.zeros(2, 12, 7, 9, 512)[:, ::2], True),  # every other slot
+], ids=["contiguous", "ring_view", "one_slot", "padded_one_slot", "padded_slots",
+        "strided_slots"])
+def test_bf16_tensor_maps_take_banks_whose_slots_follow_each_other(bank, refused):
+    t = bank()
+    refusal = tma_bank_refusal(t.shape, t.stride())
+    assert (refusal is not None) == refused
+    if refused:
+        assert "one position axis" in refusal
 
 
 @pytest.mark.parametrize("variant", list(VARIANTS))

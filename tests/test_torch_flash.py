@@ -24,7 +24,10 @@ import jax.numpy as jnp
 from rmnet_tpu.ops.flash_attention import _flash_fwd_impl, _tile_metadata
 
 from rmnet_tpu_torch.ops.flash_attention import (
+    FWD_KERNELS,
     MAX_SPLITS,
+    count_fwd_launch,
+    count_replay,
     flash_memory_read,
     flash_memory_read_reference,
     flash_read_fwd,
@@ -189,6 +192,64 @@ def test_cpu_wrapper_does_not_count_launches():
     before = flash_memory_read.launches
     flash_memory_read(*(torch.from_numpy(a) for a in (mk, mv, qk, valid, bboxes)))
     assert flash_memory_read.launches == before
+
+
+@pytest.fixture
+def fresh_counters(monkeypatch):
+    """flash_memory_read's counters, zeroed for the test and restored after."""
+    for name in ("launches", "captured", "replayed"):
+        monkeypatch.setattr(flash_memory_read, name, 0)
+    for name in ("kernels", "captured_kernels"):
+        monkeypatch.setattr(flash_memory_read, name, dict.fromkeys(FWD_KERNELS.values(), 0))
+    return flash_memory_read
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_launch_counter_names_the_main_kernel(fresh_counters, dtype):
+    """An eager call counts one launch of its type's main kernel; a captured
+    one counts nothing launched until its graph is replayed, and then once
+    per replay, the engine's reads in the bf16 (wgmma) kernel, the training
+    reads in the f32 one."""
+    kernel, other = FWD_KERNELS[dtype], FWD_KERNELS[
+        torch.float32 if dtype == torch.bfloat16 else torch.bfloat16]
+    count_fwd_launch(kernel, capturing=False)
+    assert (fresh_counters.launches, fresh_counters.kernels[kernel]) == (1, 1)
+    before = dict(fresh_counters.captured_kernels)
+    for _ in range(3):
+        count_fwd_launch(kernel, capturing=True)
+    in_graph = {k: n - before[k] for k, n in fresh_counters.captured_kernels.items()}
+    assert in_graph == {kernel: 3, other: 0}
+    assert (fresh_counters.launches, fresh_counters.captured) == (1, 3)
+    assert fresh_counters.kernels == {kernel: 1, other: 0}
+    for _ in range(2):
+        count_replay(in_graph)
+    assert fresh_counters.replayed == 6
+    assert fresh_counters.kernels == {kernel: 7, other: 0}
+
+
+def test_chip_smoke_holds_the_kernel_at_the_long_cell_read():
+    """The card's forward case of the benchmark's long-video cell has that
+    cell's read: one row per object, the bank the automatic capacity grows
+    to over the video (commits bucketed to 32 slots) plus the ephemeral
+    slot, the 480x854 frame's /16 grid; the object that joins later holds
+    fewer slots; a check of the card's determinism, and forward only."""
+    import json
+    from pathlib import Path
+
+    import chip_smoke
+
+    root = Path(__file__).resolve().parents[1] / "vosbench"
+    cfg = json.loads((root / "configs" / "rmnet-davis480-bf16.json").read_text())
+    traffic = json.loads((root / "traffic" / "closed1-t200-obj5.json").read_text())
+    commits = -(-traffic["frames"] // cfg["memorize_every"])
+    capacity = -(-commits // 32) * 32
+    name = "obj5_N5_S65_bf16"
+    N, S, h, w, dtype, _, invalid, _, _, _, (row, fewer) = chip_smoke.KERNEL_CASES[name]
+    assert (N, S, h, w) == (len(traffic["appear"]), capacity + 1, cfg["frame_height"] // 16,
+                            -(-cfg["frame_width"] // 16))
+    assert dtype == torch.bfloat16 and row == N - 1 and min(fewer) < min(invalid)
+    assert name in chip_smoke.FWD_DETERMINISM_CASES and name in chip_smoke.FWD_ONLY_CASES
+    assert "obj5_N5_S65_bf16" not in chip_smoke.BWD_CASES
 
 
 def test_kernel_entry_takes_cuda_tensors_only():
